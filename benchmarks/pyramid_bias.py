@@ -63,7 +63,7 @@ def measure(filter_kind: str) -> dict:
 
     # per-level decomposition: particles of one pyramid level at a time,
     # product path (splat_atlas, the same engine+collapse the Visualizer
-    # uses on CPU) vs the exact evaluator on the same subset
+    # uses) vs the exact evaluator on the same subset
     h_px = ps[:, 3] * (res / (2.0 * scale))
     pyramid = splat.default_pyramid(res)
     lev, _, tiny = splat.assign_levels(jnp.asarray(h_px), pyramid.num_levels)
@@ -73,7 +73,7 @@ def measure(filter_kind: str) -> dict:
         mask = lev == l
         im_l = np.asarray(splat_atlas.splat_atlas(
             jnp.asarray(ps), jnp.asarray(mass), jnp.asarray(matrix), res,
-            scale, extra_mask=jnp.asarray(mask), engine="scan")[0])[:, :, 0]
+            scale, extra_mask=jnp.asarray(mask))[0])[:, :, 0]
         exact_l = np.asarray(splat.splat_bruteforce(
             ps[mask], mass[mask], matrix, res, scale))[:, :, 0]
         s_im, s_ex = im_l[samp], exact_l[samp]

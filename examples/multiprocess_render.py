@@ -7,7 +7,7 @@ contributes only its own particle rows via
 ``jax.make_array_from_process_local_data`` — and render through the
 particle-sharded psum step.  ``ensure_presorted`` runs the AUTOMATIC
 multi-host padded-length negotiation (allgather-max over the gloo
-backend), the exact code path a TPU pod's hosts take over DCN.
+backend), the exact code path the hosts of a multi-host cluster take.
 
 The launcher then renders the same scene single-process and checks the
 multi-process images match (psum is a sum — exact up to float summation
@@ -16,10 +16,9 @@ order for the presorted path, bit-equal for the block path).
 Usage:
   python examples/multiprocess_render.py [n_particles] [n_processes]
 
-Run on CPU (the dev harness has one TPU chip; multi-process needs one
-device per process).  Everything here works unchanged on a real pod:
-replace the local coordinator with the pod's, and the slab assembly
-rides DCN while the render-step psum rides ICI.
+Run on CPU (multi-process needs one device per process).  Everything here
+works unchanged across hosts: replace the local coordinator with the
+cluster's; only the slab assembly crosses the host network.
 """
 
 from __future__ import annotations
@@ -88,14 +87,6 @@ def worker(pid: int, nproc: int, n: int):
     im_pre = np.asarray(im_pre)
     assert int(np.asarray(dropped)) == 0
 
-    # fused feed engine under REAL multi-process (a pod's interactive
-    # path: _force_feed activates the pallas-interpret feed off-TPU)
-    ds._force_feed = True
-    im_feed, dropped_f = ds.render_presorted(matrix, SCALE)
-    ds._force_feed = False
-    im_feed = np.asarray(im_feed)
-    assert int(np.asarray(dropped_f)) == 0
-
     # forced decimation-mip tier: deepest tier's whole-column render —
     # exercises the negotiated mip slabs across processes
     mips = ds.presorted_mip_layouts()
@@ -110,12 +101,11 @@ def worker(pid: int, nproc: int, n: int):
         np.asarray(mips[0].n_real, dtype=np.int64))))
 
     if pid == 0:
-        np.savez(OUT, block=im_block, pre=im_pre, feed=im_feed,
+        np.savez(OUT, block=im_block, pre=im_pre,
                  mip=im_mip, mip_frac=mip_reals / n, n=n, nproc=nproc)
     print(json.dumps({"pid": pid, "devices": D,
                       "block_sum": float(im_block[..., 0].sum()),
                       "pre_sum": float(im_pre[..., 0].sum()),
-                      "feed_sum": float(im_feed[..., 0].sum()),
                       "mip_sum": float(im_mip[..., 0].sum())}), flush=True)
 
 
@@ -155,12 +145,6 @@ def main():
     ref_pre = np.asarray(ref_pre)
     np.testing.assert_allclose(got["pre"], ref_pre, rtol=1e-3,
                                atol=1e-5 * np.abs(ref_pre).max())
-    ds._force_feed = True
-    ref_feed, _ = ds.render_presorted(matrix, SCALE)
-    ds._force_feed = False
-    np.testing.assert_allclose(got["feed"], np.asarray(ref_feed),
-                               rtol=1e-3,
-                               atol=1e-5 * np.abs(ref_pre).max())
     # the mip tier is a RANDOM fair subsample per layout build, so the
     # 2-process tier (per-process subsamples) and the single-process tier
     # select different particles — images are not comparable pixelwise.
@@ -178,7 +162,7 @@ def main():
     assert abs(got_mass - want_mass) < 0.1 * want_mass, \
         f"mip tier mass {got_mass} vs expected {want_mass}"
     print(f"PASS: {nproc}-process render matches single-process "
-          f"({n} particles, {RES}x{RES}; block/presorted/feed + mip tier "
+          f"({n} particles, {RES}x{RES}; block/presorted + mip tier "
           f"photometry)")
 
 

@@ -7,7 +7,7 @@ slice at the LOD floor would render — so interactive frames can go below
 1/8 coverage while the full progression still renders every particle
 exactly once.  The reference has no analogue (its rasterizer draws
 arbitrary index ranges, reference: src/topsy/progressive_render.py:8-137);
-this is the TPU-native substitute for sub-floor LOD at 10^8-particle scale.
+this is the substitute for sub-floor LOD at 10^8-particle scale.
 """
 
 import numpy as np

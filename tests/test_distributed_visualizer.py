@@ -79,9 +79,9 @@ def test_distributed_depth_image(pair):
 
 
 def test_distributed_surface_matches_single_chip(pair):
-    """Surface (z-buffered) mode over the mesh: per-shard Pallas
-    max-composite + cross-mesh depth arg-max reduce must reproduce the
-    single-chip front-most image (VERDICT round-1 missing #2)."""
+    """Surface (z-buffered) mode over the mesh: per-shard front-most
+    atlas engine + cross-mesh depth arg-max reduce must reproduce the
+    single-chip front-most image."""
     from topsy_tpu.render.distributed import DistributedSurfaceSPHRenderer
     v1, v8 = pair
     v1.render_mode = "surface"

@@ -255,96 +255,56 @@ def test_multi_process_presort_negotiates_automatically(data, monkeypatch):
                                rtol=1e-5, atol=1e-7)
 
 
-def test_feed_path_multichip_matches_legacy(data):
-    """The mesh fused-feed paths (transposed-field slabs through
-    ops/splat_feed.py under shard_map) reproduce the legacy mesh presorted
-    and column renders."""
-    ps, vals, matrix = data
-    mesh = make_mesh(8)
-    sp = DistributedSplatter(mesh, ps, vals, RES)
-    im_leg, d0 = sp.render_presorted(matrix, SCALE)
-    sp._force_feed = True
-    assert sp._use_feed()
-    im_feed, d1 = sp._render_presorted_fields(matrix, SCALE, None)
-    assert int(d0) == 0 and int(d1) == 0
-    im_leg = np.asarray(im_leg)
-    im_feed = np.asarray(im_feed)
-    assert im_feed[..., 0].sum() == pytest.approx(im_leg[..., 0].sum(),
-                                                  rel=1e-3)
-    assert np.abs(im_feed - im_leg).max() <= 0.01 * np.abs(im_leg).max()
+def test_mesh_columns_with_giant_threshold(data):
+    """The mesh column and presorted paths take a giant bucket threshold
+    (the call every interactive CHANGE and EXPORT frame makes on a mesh)
+    and exclude the same giants as the single-device launches over the
+    same global layout."""
+    import jax.numpy as jnp
 
-    im_c_leg, dc0 = sp.render_columns(matrix, SCALE, 128, 128)
-    im_c_feed, dc1 = sp._render_columns_fields(matrix, SCALE, 128, 128, None)
-    assert int(dc0) == 0 and int(dc1) == 0
-    im_c_leg = np.asarray(im_c_leg)
-    im_c_feed = np.asarray(im_c_feed)
-    assert im_c_feed[..., 0].sum() == pytest.approx(im_c_leg[..., 0].sum(),
-                                                    rel=1e-3)
-    assert np.abs(im_c_feed - im_c_leg).max() <= \
-        0.01 * np.abs(im_c_leg).max()
+    from topsy_tpu.ops import morton
+    from topsy_tpu.render.sph import (_render_block_columns,
+                                      _render_block_presorted)
 
-
-def test_feed_path_multichip_culling(data):
-    """Mesh feed path with a cell mask: the precomputed sharded cull mask
-    reproduces the legacy per-frame table gather."""
-    ps, vals, matrix = data
-    rng = np.random.RandomState(5)
-    nside = 4
-    lo = ps[:, :3].min()
-    hi = ps[:, :3].max() + 1e-3
-    cell = ((ps[:, :3] - lo) / (hi - lo) * nside).astype(np.int32)
-    cell_ids = (cell[:, 0] * nside + cell[:, 1]) * nside + cell[:, 2]
-    n_cells = nside ** 3
-    cell_mask = rng.random_sample(n_cells) < 0.5
-
-    mesh = make_mesh(8)
-    sp = DistributedSplatter(mesh, ps, vals, RES, cell_ids=cell_ids)
-    im_leg, d0 = sp.render_presorted(matrix, SCALE, cell_mask=cell_mask)
-    sp._force_feed = True
-    im_feed, d1 = sp._render_presorted_fields(matrix, SCALE, cell_mask)
-    assert int(d0) == 0 and int(d1) == 0
-    im_leg = np.asarray(im_leg)
-    im_feed = np.asarray(im_feed)
-    assert im_feed[..., 0].sum() == pytest.approx(im_leg[..., 0].sum(),
-                                                  rel=1e-3)
-    assert np.abs(im_feed - im_leg).max() <= 0.01 * np.abs(im_leg).max()
-
-
-def test_feed_columns_with_giant_threshold(data):
-    """Regression: the mesh feed column path must accept a giant bucket
-    threshold (round 3 shipped a pytree mismatch: _render_columns_fields
-    never passed the gb_thresh scalar its shard_map specs declare — the
-    exact call every interactive CHANGE frame makes on a real TPU pod).
-    Threshold exclusion must agree between the feed and legacy engines,
-    and the raw-API default (None) must render giants exactly on both."""
     ps, vals, matrix = data
     mesh = make_mesh(8)
     sp = DistributedSplatter(mesh, ps, vals, RES)
     sp.ensure_presorted()
+    layout = sp.presorted_layout
     thresh = 3  # exclude the largest smoothing buckets on every path
+    m = jnp.asarray(matrix, jnp.float32)
+    ps_p = layout.apply(jnp.asarray(ps, jnp.float32), fill=morton.PAD_POS)
+    vals_p = layout.apply(jnp.asarray(vals, jnp.float32))
+    n = ps_p.shape[0]
 
-    im_leg, d0 = sp.render_columns(matrix, SCALE, 0, 128,
-                                   giant_bucket=thresh)
-    sp._force_feed = True
-    assert sp._use_feed()
-    im_feed, d1 = sp._render_columns_fields(matrix, SCALE, 0, 128, None,
-                                            giant_bucket=thresh)
+    im_mesh, d0 = sp.render_columns(matrix, SCALE, 0, 128,
+                                    giant_bucket=thresh)
+    im_one, d1 = _render_block_columns(
+        ps_p, vals_p, layout.buckets, None, None, m, jnp.float32(SCALE),
+        jnp.int32(0), jnp.int32(thresh), resolution=RES, width=128,
+        depth_channel=False, pad_group=layout.pad_group)
     assert int(d0) == 0 and int(d1) == 0
-    im_leg = np.asarray(im_leg)
-    im_feed = np.asarray(im_feed)
-    assert im_feed[..., 0].sum() == pytest.approx(im_leg[..., 0].sum(),
+    im_mesh, im_one = np.asarray(im_mesh), np.asarray(im_one)
+    assert im_mesh[..., 0].sum() == pytest.approx(im_one[..., 0].sum(),
                                                   rel=1e-3)
-    assert np.abs(im_feed - im_leg).max() <= \
-        0.01 * max(np.abs(im_leg).max(), 1e-12)
+    assert np.abs(im_mesh - im_one).max() <= \
+        0.01 * max(np.abs(im_one).max(), 1e-12)
 
-    # presorted feed path with the same threshold (the EXPORT-frame call)
-    im_p_feed, d2 = sp._render_presorted_fields(matrix, SCALE, None,
-                                                giant_bucket=thresh)
-    sp._force_feed = False
-    im_p_leg, d3 = sp.render_presorted(matrix, SCALE, giant_bucket=thresh)
+    # presorted path with the same threshold (the EXPORT-frame call)
+    im_p_mesh, d2 = sp.render_presorted(matrix, SCALE, giant_bucket=thresh)
+    im_p_one, d3 = _render_block_presorted(
+        ps_p, vals_p, layout.buckets, jnp.zeros(n, jnp.int32),
+        jnp.ones(1, bool), m, jnp.float32(SCALE), jnp.int32(0),
+        jnp.int32(n), jnp.int32(thresh), resolution=RES, bucket=n,
+        depth_channel=False)
     assert int(d2) == 0 and int(d3) == 0
-    np.testing.assert_allclose(np.asarray(im_p_feed)[..., 0].sum(),
-                               np.asarray(im_p_leg)[..., 0].sum(), rtol=1e-3)
+    np.testing.assert_allclose(np.asarray(im_p_mesh)[..., 0].sum(),
+                               np.asarray(im_p_one)[..., 0].sum(), rtol=1e-3)
+    # the threshold excluded something: the default (exact in-call giants)
+    # deposits more
+    im_auto, _ = sp.render_presorted(matrix, SCALE)
+    assert np.asarray(im_auto)[..., 0].sum() > \
+        np.asarray(im_p_mesh)[..., 0].sum()
 
 
 def test_mesh_giant_contract_uniform(data):

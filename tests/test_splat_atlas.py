@@ -5,7 +5,7 @@ import jax.numpy as jnp
 
 from topsy_tpu import camera
 from topsy_tpu.loaders import TestDataLoader
-from topsy_tpu.ops import splat, splat_atlas
+from topsy_tpu.ops import morton, splat, splat_atlas
 
 
 RES = 128
@@ -20,6 +20,24 @@ def make_matrix(rot=None, offset=(0, 0, 0), scale=SCALE):
 def render_atlas(ps, vals, matrix, res=RES, scale=SCALE):
     im, dropped = splat_atlas.splat_atlas(jnp.asarray(ps), jnp.asarray(vals),
                                           jnp.asarray(matrix), res, scale)
+    return np.asarray(im), int(dropped)
+
+
+def render_path(path, ps, vals, matrix, res=RES, scale=SCALE):
+    """The windowed engine through the per-frame sorted scan, or through
+    the static presorted order (ops/morton.py) with its bucket levels."""
+    if path == "scan":
+        im, dropped = splat_atlas.splat_atlas(
+            jnp.asarray(ps), jnp.asarray(vals), jnp.asarray(matrix), res,
+            scale)
+    else:
+        layout = morton.build_presorted(np.asarray(ps, np.float32))
+        im, dropped = splat_atlas.splat_atlas(
+            jnp.asarray(layout.apply(np.asarray(ps, np.float32),
+                                     fill=morton.PAD_POS)),
+            jnp.asarray(layout.apply(np.asarray(vals, np.float32))),
+            jnp.asarray(matrix), res, scale,
+            presorted_buckets=jnp.asarray(layout.buckets))
     return np.asarray(im), int(dropped)
 
 
@@ -78,8 +96,8 @@ def test_atlas_matches_scatter_gmm():
     assert np.median(np.abs(qa - qs)) < 2e-7
 
 
-@pytest.mark.parametrize("engine", ["scan", "pallas"])
-def test_atlas_sparse_scene_spills_but_conserves(engine):
+@pytest.mark.parametrize("path", ["scan", "presorted"])
+def test_atlas_sparse_scene_spills_but_conserves(path):
     """Very sparse scenes exercise the spill pass; mass must be conserved."""
     rng = np.random.RandomState(0)
     n = 300
@@ -87,31 +105,12 @@ def test_atlas_sparse_scene_spills_but_conserves(engine):
     ps[:, :3] = rng.uniform(-150, 150, (n, 3))
     ps[:, 3] = rng.uniform(3.0, 8.0, n)  # small splats at level 0, sparse
     vals = np.ones((n, 1), dtype=np.float32)
-    im, dropped = splat_atlas.splat_atlas(jnp.asarray(ps), jnp.asarray(vals),
-                                          jnp.asarray(make_matrix()), RES,
-                                          SCALE, engine=engine)
-    im, dropped = np.asarray(im), int(dropped)
+    im, dropped = render_path(path, ps, vals, make_matrix())
     assert dropped == 0
     ref = render_scatter(ps, vals, make_matrix())
     assert im[:, :, 0].sum() == pytest.approx(ref[:, :, 0].sum(), rel=0.01)
     corr = np.corrcoef(im[:, :, 0].ravel(), ref[:, :, 0].ravel())[0, 1]
     assert corr > 0.999
-
-
-def test_atlas_pallas_engine_matches_scan():
-    loader = TestDataLoader(20000, seed=1337)
-    ps = loader.get_pos_smooth()
-    mass = loader.get_mass()
-    vals = np.stack([mass, mass], axis=1)
-    m = make_matrix()
-    im_s, _ = splat_atlas.splat_atlas(jnp.asarray(ps), jnp.asarray(vals),
-                                      jnp.asarray(m), RES, SCALE, engine="scan")
-    im_p, _ = splat_atlas.splat_atlas(jnp.asarray(ps), jnp.asarray(vals),
-                                      jnp.asarray(m), RES, SCALE, engine="pallas")
-    im_s, im_p = np.asarray(im_s), np.asarray(im_p)
-    # pallas uses bf16 deposit matmuls; tolerance reflects that
-    assert np.abs(im_p - im_s).max() <= 0.01 * im_s.max()
-    assert im_p.sum() == pytest.approx(im_s.sum(), rel=0.005)
 
 
 def test_non_power_of_two_resolution_mass_exact():
@@ -147,8 +146,8 @@ def test_atlas_z_culling_and_mask():
     assert float(np.asarray(im2).sum()) == 0.0
 
 
-@pytest.mark.parametrize("engine", ["scan", "pallas"])
-def test_atlas_giant_splats_masked_path(engine):
+@pytest.mark.parametrize("path", ["scan", "presorted"])
+def test_atlas_giant_splats_masked_path(path):
     """Splats whose smoothing clamps above SPLAT_MAX_HALF_SIZE_PX at the
     coarsest level take the footprint-masked kernel path; the truncation is
     exactly compensated by the normalization table (mass conserved)."""
@@ -160,10 +159,7 @@ def test_atlas_giant_splats_masked_path(engine):
     # clamped coarsest level (h_eff in (3.5, 16])
     ps[:, 3] = np.exp(rng.uniform(np.log(5.0), np.log(400.0), n)).astype(np.float32)
     vals = np.ones((n, 1), dtype=np.float32)
-    im, dropped = splat_atlas.splat_atlas(jnp.asarray(ps), jnp.asarray(vals),
-                                          jnp.asarray(make_matrix()), RES,
-                                          SCALE, engine=engine)
-    im, dropped = np.asarray(im), int(dropped)
+    im, dropped = render_path(path, ps, vals, make_matrix())
     assert dropped == 0
     ref = render_scatter(ps, vals, make_matrix())
     # mass parity with the exact-giant scatter path (full-support giants
@@ -174,8 +170,8 @@ def test_atlas_giant_splats_masked_path(engine):
     assert corr > 0.995
 
 
-@pytest.mark.parametrize("engine", ["scan", "pallas"])
-def test_atlas_heavy_spill_stress(engine):
+@pytest.mark.parametrize("path", ["scan", "presorted"])
+def test_atlas_heavy_spill_stress(path):
     """A scene engineered so group windows misfit en masse (alternating
     distant clusters interleaved in memory): the group-gathered spill tiers
     must still conserve mass and match the exact scatter path."""
@@ -191,39 +187,9 @@ def test_atlas_heavy_spill_stress(engine):
     ps[:, 2] = rng.uniform(-50, 50, n)
     ps[:, 3] = rng.uniform(2.0, 6.0, n)
     vals = np.ones((n, 1), dtype=np.float32)
-    im, dropped = splat_atlas.splat_atlas(jnp.asarray(ps), jnp.asarray(vals),
-                                          jnp.asarray(make_matrix()), RES,
-                                          SCALE, engine=engine)
-    im, dropped = np.asarray(im), int(dropped)
+    im, dropped = render_path(path, ps, vals, make_matrix())
     assert dropped == 0
     ref = render_scatter(ps, vals, make_matrix())
     assert im[:, :, 0].sum() == pytest.approx(ref[:, :, 0].sum(), rel=0.01)
     corr = np.corrcoef(im[:, :, 0].ravel(), ref[:, :, 0].ravel())[0, 1]
     assert corr > 0.999
-
-
-def test_tier3_pallas_matches_scan(monkeypatch):
-    """The unconditional group=1 pallas tier 3 (big launches) reproduces
-    the scan tier's image on a straggler-heavy scene."""
-    rng = np.random.RandomState(2)
-    n = 4096
-    ps = np.zeros((n, 4), dtype=np.float32)
-    corners = np.array([[-120, -120], [120, -120], [-120, 120], [120, 120]])
-    c = corners[np.arange(n) % 4]
-    ps[:, 0] = c[:, 0] + rng.uniform(-20, 20, n)
-    ps[:, 1] = c[:, 1] + rng.uniform(-20, 20, n)
-    ps[:, 2] = rng.uniform(-50, 50, n)
-    ps[:, 3] = rng.uniform(2.0, 6.0, n)
-    vals = np.ones((n, 1), dtype=np.float32)
-    args = (jnp.asarray(ps), jnp.asarray(vals), jnp.asarray(make_matrix()))
-
-    im_scan, d0 = splat_atlas.splat_atlas(*args, RES, SCALE, engine="pallas")
-    monkeypatch.setattr(splat_atlas, "TIER3_PALLAS_MIN_GROUPS", 1)
-    im_p, d1 = splat_atlas.splat_atlas(*args, RES, SCALE, engine="pallas")
-    assert int(d0) == 0
-    assert int(d1) == 0
-    im_scan = np.asarray(im_scan)
-    im_p = np.asarray(im_p)
-    assert im_p[..., 0].sum() == pytest.approx(im_scan[..., 0].sum(),
-                                               rel=1e-3)
-    assert np.abs(im_p - im_scan).max() <= 0.01 * np.abs(im_scan).max()

@@ -15,7 +15,7 @@ def test_bucket_size_rules():
     assert bucket_size(1, 10**9) == MIN_BUCKET
     assert bucket_size(MIN_BUCKET, 10**9) == MIN_BUCKET
     assert bucket_size(MIN_BUCKET + 1, 10**9) == 2 * MIN_BUCKET
-    assert bucket_size(10**9, 10**9) == MAX_BUCKET  # per-launch SMEM cap
+    assert bucket_size(10**9, 10**9) == MAX_BUCKET  # per-launch cap
     assert bucket_size(10**9, 5000) == 5000         # clamped to array size
 
 

@@ -1,5 +1,5 @@
-"""Pallas max-composite (z-buffered) atlas splatter vs the exact
-scatter-max reference (ops/zsplat.py).
+"""Front-most (z-buffered) atlas splatter vs the exact scatter-max
+reference (ops/zsplat.py).
 
 With matched pyramid levels the two paths implement identical hemisphere
 depth-test semantics, so agreement is exact (to f32), including winner

@@ -1,9 +1,11 @@
-"""topsy_tpu — a TPU-native SPH/N-body particle visualization framework.
+"""topsy_tpu — an accelerator-native SPH/N-body particle visualization
+framework.
 
 A ground-up JAX/XLA rebuild of the capabilities of pynbody/topsy: the
 rasterizer pipeline becomes tiled matmul splatting, progressive LOD becomes
 contiguous prefix ranges over an interleaved particle order, and multi-chip
-scaling shards the particle axis with partial framebuffers reduced over ICI.
+scaling shards the particle axis with partial framebuffers reduced over the
+device mesh.
 
 CLI/API surface mirrors the reference (reference: src/topsy/__init__.py):
 ``load()``, ``topsy()``, ``test()``, ``parse_args()`` with ``+``-separated
@@ -31,7 +33,7 @@ def parse_args(args=None):
     """Parse CLI arguments into per-window batches separated by '+'
     (reference: __init__.py:21-69)."""
     argparser = argparse.ArgumentParser(
-        description="Visualize an astrophysics simulation on TPU. Multiple "
+        description="Visualize an astrophysics simulation. Multiple "
                     "windows can be opened by separating groups of arguments "
                     "with +.")
     argparser.add_argument("filename",

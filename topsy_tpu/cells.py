@@ -5,7 +5,7 @@ src/topsy/cell_layout.py:8-113): particles are sorted by cell, each cell is a
 contiguous (offset, length) segment, and the order *within* a cell is
 randomized so that any prefix of a cell is a fair subsample.
 
-TPU-native addition: :meth:`CellLayout.interleave_order` materializes the
+Addition for the device path: :meth:`CellLayout.interleave_order` materializes the
 reference's per-cell phase-shifted progressive subsampling (reference:
 src/topsy/progressive_render.py:152-187) as a single global particle order in
 which every *global prefix* contains exactly the reference's per-cell

@@ -13,8 +13,6 @@ import logging
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Tuple, Union
 
-import matplotlib as mpl
-
 from .. import config
 from ..drawreason import DrawReason
 
@@ -83,7 +81,8 @@ class ColorMapController(GenericController):
     default_quantity_name = config.PROJECTED_DENSITY_NAME
 
     def get_colormap_list(self) -> List[str]:
-        return list(mpl.colormaps.keys())
+        from ..util import require
+        return list(require("matplotlib", "the colormap list").colormaps)
 
     def get_quantity_list(self) -> List[str]:
         names = sorted(self.visualizer.data_loader.get_quantity_names(), key=str.lower)

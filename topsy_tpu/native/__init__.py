@@ -3,7 +3,7 @@ binning for the load path.
 
 Compiled lazily with the system compiler into the package directory and
 loaded via ctypes; every entry point has a numpy fallback so the framework
-works without a toolchain (the TPU compute path never depends on this
+works without a toolchain (the device compute path never depends on this
 module).
 """
 

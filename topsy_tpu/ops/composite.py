@@ -14,25 +14,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-
-def upsample2x_linear(x: jnp.ndarray) -> jnp.ndarray:
-    """Exact 2x bilinear upsample over the two leading axes.
-
-    Matches ``jax.image.resize(x, (2H, 2W, C), "linear", antialias=False)``
-    (half-pixel-centre sampling with edge clamp: out[2k] = 0.75 in[k] +
-    0.25 in[k-1], out[2k+1] = 0.75 in[k] + 0.25 in[k+1]) but lowers to pure
-    shifts and weighted adds — several times faster than the general
-    gather-based resize on TPU, in the pyramid-collapse hot path."""
-
-    def axis0(a):
-        lo = jnp.concatenate([a[:1], a[:-1]], axis=0)
-        hi = jnp.concatenate([a[1:], a[-1:]], axis=0)
-        even = 0.75 * a + 0.25 * lo
-        odd = 0.75 * a + 0.25 * hi
-        return jnp.stack([even, odd], axis=1).reshape((-1,) + a.shape[1:])
-
-    x = axis0(x)
-    return jnp.swapaxes(axis0(jnp.swapaxes(x, 0, 1)), 0, 1)
+# The pyramid-collapse upsamples are float32 matmuls against small
+# interpolation matrices; on a GPU a product without a precision may run in
+# TF32, which would round every collapsed level to ~3 decimal digits.
+UPSAMPLE_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _catmull_weight(t: float) -> float:
@@ -105,24 +90,6 @@ def _upsample2x_matrix(n: int, kind: str = "linear"):
     return m  # numpy: a jnp constant cached here would leak tracers under jit
 
 
-def upsample2x_linear_cm(x: jnp.ndarray) -> jnp.ndarray:
-    """Exact 2x bilinear upsample over the two *trailing* axes.
-
-    Channel-major companion of :func:`upsample2x_linear` for (C, H, W)
-    images: the channel axis stays leading, so the sublane/lane dims remain
-    the full-resolution (H, W) — on TPU a trailing channel dim of 2 wastes
-    126/128 vector lanes and forces relayouts.  Each axis upsamples by a
-    small constant interpolation matmul: even/odd lane interleaves and
-    sublane/lane transposes are register shuffles the VPU crawls through,
-    while the equivalent (H, 2H)/(W, 2W) matmuls ride the MXU (measured
-    ~10x on the 1024^2 pyramid collapse)."""
-    C, H, W = x.shape
-    t = jnp.einsum("chw,hH->cHw", x, _upsample2x_matrix(H),
-                   preferred_element_type=jnp.float32)
-    return jnp.einsum("cHw,wW->cHW", t, _upsample2x_matrix(W),
-                      preferred_element_type=jnp.float32)
-
-
 def upsample2x_kind(x: jnp.ndarray, kind: str) -> jnp.ndarray:
     """2x upsample over the two leading axes of (H, W, C) with the given
     reconstruction filter (see _upsample2x_matrix).
@@ -134,28 +101,22 @@ def upsample2x_kind(x: jnp.ndarray, kind: str) -> jnp.ndarray:
     tolerate zeros."""
     H, W = x.shape[0], x.shape[1]
     t = jnp.einsum("hw...,hH->Hw...", x, _upsample2x_matrix(H, kind),
-                   preferred_element_type=jnp.float32)
+                   preferred_element_type=jnp.float32,
+                   precision=UPSAMPLE_PRECISION)
     return jnp.einsum("Hw...,wW->HW...", t, _upsample2x_matrix(W, kind),
-                      preferred_element_type=jnp.float32)
-
-
-def upsample2x_catmull(x: jnp.ndarray) -> jnp.ndarray:
-    """2x Catmull-Rom upsample over the two leading axes of (H, W, C)."""
-    return upsample2x_kind(x, "catmull")
+                      preferred_element_type=jnp.float32,
+                   precision=UPSAMPLE_PRECISION)
 
 
 def upsample2x_kind_cm(x: jnp.ndarray, kind: str) -> jnp.ndarray:
     """2x upsample over the two trailing axes of (C, H, W)."""
     C, H, W = x.shape
     t = jnp.einsum("chw,hH->cHw", x, _upsample2x_matrix(H, kind),
-                   preferred_element_type=jnp.float32)
+                   preferred_element_type=jnp.float32,
+                   precision=UPSAMPLE_PRECISION)
     return jnp.einsum("cHw,wW->cHW", t, _upsample2x_matrix(W, kind),
-                      preferred_element_type=jnp.float32)
-
-
-def upsample2x_catmull_cm(x: jnp.ndarray) -> jnp.ndarray:
-    """2x Catmull-Rom upsample over the two trailing axes of (C, H, W)."""
-    return upsample2x_kind_cm(x, "catmull")
+                      preferred_element_type=jnp.float32,
+                   precision=UPSAMPLE_PRECISION)
 
 
 def upsample2x_zmax_cm(dv: jnp.ndarray) -> jnp.ndarray:

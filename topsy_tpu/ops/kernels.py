@@ -1,9 +1,10 @@
-"""SPH kernel mathematics for the TPU splatter.
+"""SPH kernel mathematics for the splatter.
 
 The projected (2D) cubic-spline kernel is the line-of-sight integral of the
 standard M4 cubic spline with support 2h (the same kernel the reference
-obtains from pynbody; reference: src/topsy/sph.py:364-394).  Because TPUs
-have no texture samplers, we do not build a mip-mapped texture.  Instead we
+obtains from pynbody; reference: src/topsy/sph.py:364-394).  The array
+program has no texture samplers, so we do not build a mip-mapped texture.
+Instead we
 
 * tabulate the radial profile once (host, numpy),
 * build a low-rank *separable* eigen-decomposition

@@ -2,14 +2,14 @@
 
 The reference computes smoothing lengths with pynbody's host-side KD-tree
 kNN (C/OpenMP) and caches them to disk (reference: src/topsy/loader.py:
-222-238).  This module provides the TPU-native equivalent for snapshots that
+222-238).  This module provides an on-device equivalent for snapshots that
 arrive without smoothing lengths: an SPH-style iterative solve
 
     h_i  such that  sum_j W(|x_i - x_j| / h_i) * V  ~  N_ngb
 
 evaluated against a multi-resolution cloud-in-cell density grid instead of an
-explicit neighbour search (gathers and sorts are slow on TPU; dense grid
-binning batched over a fixed level set is not).  The estimate matches kNN
+explicit neighbour search (dense grid binning batched over a fixed level set
+needs no gathers or sorts).  The estimate matches kNN
 smoothing lengths statistically (same density scaling, unbiased at ~10%
 scatter) which is what rendering needs; for bit-exact pynbody parity the
 host KD-tree path (native/knn.cpp) can be used instead.

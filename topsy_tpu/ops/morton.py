@@ -2,8 +2,8 @@
 
 The atlas splatter needs particle groups whose projected (row band, column)
 span fits a bounded accumulation window.  The interactive path gets this
-from a per-frame ``lax.sort`` — the dominant cost of large renders (~9 ms
-per million particles on v5e).  For full renders (EXPORT and the headline
+from a per-frame ``lax.sort``, a large share of the cost of large renders.
+For full renders (EXPORT and the headline
 benchmark) the sort can be eliminated entirely with a *static*, camera-
 independent order computed once per snapshot:
 

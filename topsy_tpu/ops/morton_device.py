@@ -1,12 +1,12 @@
-"""On-device (bucket, Morton) presort build — the TPU-native replacement
-for the host-side ``ops/morton.build_presorted``.
+"""On-device (bucket, Morton) presort build — the device replacement for
+the host-side ``ops/morton.build_presorted``.
 
 The host build is memory-bandwidth bound numpy: measured ~210 s at 2^24 on
 the dev host (radix 15 s, run padding + shuffle ~66 s, each array apply
-~45 s), which would be tens of minutes at the 100M-particle north star.  On
-the TPU the same construction is a handful of ``lax.sort`` calls and
-elementwise/cumulative passes: ~0.3 s at 2^24, and per-quantity applies are
-single row gathers (~16 ns/row).  Raw arrays are uploaded once (the same
+~45 s), which would be tens of minutes at 100M particles.  On the device
+the same construction is a handful of ``lax.sort`` calls and
+elementwise/cumulative passes, and per-quantity applies are single row
+gathers.  Raw arrays are uploaded once (the same
 bytes the host path would upload anyway) and never touched again by the
 host.
 
@@ -44,7 +44,7 @@ Algorithm (all O(n) passes + three sorts, no large scatters):
 
 Reference: the reference has no analogue (its renderer re-sorts on the GPU
 every frame, src/topsy/sph.py:332-345); this order is what makes the
-sort-free splat path possible on TPU (ops/morton.py).
+sort-free splat path possible (ops/morton.py).
 """
 
 from __future__ import annotations
@@ -94,10 +94,8 @@ def _ceil_to(x, q):
 
 @partial(jax.jit, static_argnames=("n_real",))
 def _sort_stage(ps, *, n_real: int):
-    """Key + three-key sort.  Separately jitted: one fused mega-program for
-    the whole build ran ~7x slower than the staged pipeline at 2^26
-    (measured 20 s vs 2.8 s — XLA scheduling pathology), so the build is
-    split at its natural barriers."""
+    """Key + three-key sort.  Separately jitted: the build is split at its
+    natural barriers rather than fused into one program."""
     n_cap = ps.shape[0]
     idx = jnp.arange(n_cap, dtype=jnp.int32)
     real_in = idx < n_real

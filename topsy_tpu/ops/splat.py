@@ -1,8 +1,8 @@
 """Particle splatting: the render core.
 
-TPUs have no rasterizer, so the reference's instanced-quad additive-blend
-pipeline (reference: src/topsy/sph.py:221-362, shaders/sph.wgsl) becomes an
-array program:
+The reference's instanced-quad additive-blend rasterizer pipeline
+(reference: src/topsy/sph.py:221-362, shaders/sph.wgsl) becomes an array
+program:
 
 * particles are projected with a 4x4 matrix (one small matmul),
 * each splat is assigned to a resolution-pyramid level so its footprint is a
@@ -15,8 +15,9 @@ Two interchangeable accumulation backends:
 
 * ``splat_scatter``: straightforward windowed scatter-add.  Exact and simple;
   fast on CPU, used for tests and as the ground-truth implementation.
-* ``splat_atlas`` (see splat_atlas.py): the TPU fast path — sorts splats by
-  (level, row band) and accumulates via low-rank outer-product matmuls.
+* ``splat_atlas`` (see splat_atlas.py): the fast path — orders splats so
+  consecutive groups are spatially local and accumulates each group into a
+  window of a stacked level atlas via low-rank outer-product matmuls.
 
 Both conserve mass exactly via the discrete normalization table
 (ops/kernels.py) and produce distribution-identical images.
@@ -96,8 +97,8 @@ def project(pos_smooth: jnp.ndarray, matrix: jnp.ndarray, resolution: int,
     pixels), visible mask (z-culling as the rasterizer would do).
     """
     # explicit linear combination instead of concat-ones + (N,4)@(4,4):
-    # the concat materializes a 16B/particle copy and the tiny-K dot pads
-    # to MXU tiles; three 4-term FMAs fuse into the single elementwise pass
+    # the concat materializes a 16B/particle copy; three 4-term FMAs fuse
+    # into the single elementwise pass
     # XLA already makes over the columns (the w row is an affine constant 1)
     x, y, z = pos_smooth[:, 0], pos_smooth[:, 1], pos_smooth[:, 2]
     m = matrix
@@ -179,7 +180,7 @@ def norm_factor(h_eff: jnp.ndarray, mode: str) -> jnp.ndarray:
 
 def exp2_int(e: jnp.ndarray) -> jnp.ndarray:
     """Exact 2^e for small integer arrays via the f32 exponent field — no
-    transcendental (saves ~1 ms per 4M-wide exp2 on v5e)."""
+    transcendental."""
     return jax.lax.bitcast_convert_type(
         ((e + 127) << 23).astype(jnp.int32), jnp.float32)
 

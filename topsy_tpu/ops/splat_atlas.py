@@ -1,27 +1,26 @@
-"""The TPU fast-path splatter: sorted row-band accumulation via matmuls.
+"""The additive windowed splatter: sorted groups deposited by matmuls.
 
-XLA scatter on TPU serializes (~25M updates/s measured), so the rasterizer
-cannot be emulated with scatter-add.  Instead this backend exploits the
-separable low-rank kernel decomposition (ops/kernels.py):
+Each particle's separable low-rank kernel decomposition (ops/kernels.py)
 
     deposit(dy, dx) = sum_k s_k * p_k((dy/h)^2) * p_k((dx/h)^2)
 
-For a group of G particles, all deposits into a (rows x cols) window are
+makes all deposits of a group of G particles into a (rows x cols) window
 
     out[r, (w, c)] = sum_{k, i} P[k, i, r] * (Q[k, i, w] * coef[i, c])
 
-— a single (rows x G*rank) @ (G*rank x W*C) matrix product that runs on the
-MXU.  The full pipeline is:
+— one (rows x G*rank) @ (G*rank x W*C) matrix product.  The pipeline:
 
 1. project + level-assign particles (ops/splat.py front-end); all pyramid
    levels live stacked in one padded "atlas" canvas so there is one code path;
-2. sort particles by (8-row atlas band, column) — one variadic ``lax.sort``
-   carrying the per-particle payload, so no gathers;
-3. ``lax.scan`` over fixed groups of sorted particles; each group accumulates
-   into a dynamically-positioned 64-row x 256-col window of the atlas;
-4. groups too sparse to fit their window spill into a bounded dense pass
-   (full-atlas matmul), executed only when spills exist;
-5. crop the levels out of the atlas, bilinearly upsample and sum.
+2. order particles so consecutive groups are spatially local: one variadic
+   ``lax.sort`` by (8-row atlas band, column) carrying the per-particle
+   payload, or no sort at all when the arrays come in the static presorted
+   (smoothing-bucket, Morton) order (ops/morton.py);
+3. ``lax.scan`` over fixed groups; each group accumulates into a
+   dynamically positioned window of the atlas (``dynamic_update_slice``);
+4. particles that do not fit their group's window are deposited by the
+   bounded spill tiers (``spill_pass``), executed only when spills exist;
+5. crop the levels out of the atlas, upsample and sum.
 
 Everything is static-shaped; particle counts are handled by masking, so a
 given (bucket size, resolution, channels) compiles exactly once.
@@ -39,15 +38,21 @@ from .splat import (PyramidSpec, default_pyramid, profiles_select,
                     splat_coefficients)
 
 GROUP = 512                 # particles per matmul group
-TIER3_PALLAS_MIN_GROUPS = 16384  # launch size above which the spill pass
-                                 # runs tier 3 as an unconditional group=1
-                                 # pallas pass (see spill_pass)
 WINDOW_ROWS = 64            # rows of the dynamic accumulation window
+PRESORTED_WINDOW_ROWS = 96  # presorted groups span whole Morton cells
 WINDOW_COLS = 256           # cols of the dynamic accumulation window
 BAND = config.SPLAT_BAND_ROWS
 COL_PAD = config.SPLAT_ATLAS_COL_PAD
 ROW_PAD = config.SPLAT_ATLAS_PAD
 FOOT = 8.0                  # footprint half-width in level pixels
+# The deposit matmul's precision.  DEFAULT lets the GPU run the float32
+# product in TF32 (10 mantissa bits, float32 accumulation).  Measured on an
+# H100 at 2^24 particles, 1024^2, against the float32 scatter reference
+# (PERF.md): TF32 leaves the image mean within 1.1e-4, the std within
+# 7.4e-5 and the pixel correlation at 0.9999999999 — against tolerances of
+# 0.005, 0.02 and 0.999, the error being dominated by the rank-2 kernel
+# fit either way — and the EXPORT frame is 25% faster than at HIGHEST.
+DEPOSIT_PRECISION = jax.lax.Precision.DEFAULT
 
 
 def atlas_layout(pyramid: PyramidSpec):
@@ -57,15 +62,12 @@ def atlas_layout(pyramid: PyramidSpec):
     for res_l in pyramid.level_resolutions:
         row_offs.append(r)
         r += res_l + ROW_PAD
-    width = max(pyramid.resolution + 2 * COL_PAD, 384)
-    width = ((width + 127) // 128) * 128  # lane-aligned for the Pallas engine
+    width = max(pyramid.resolution + 2 * COL_PAD, WINDOW_COLS)
     return tuple(row_offs), r, width
 
 
-
-
 def make_group_contribution(lrk, C: int):
-    """Window-deposit closure for the XLA scan engine and the spill tiers."""
+    """Window-deposit closure for the main scan and the spill tiers."""
 
     def group_contribution(ay_g, ax_g, inv_h_g, coef_g, w0_g, c0_g, rows, cols):
         """(rows x G*rank) @ (G*rank x W*C) deposit for one particle group."""
@@ -85,7 +87,8 @@ def make_group_contribution(lrk, C: int):
         PC2 = PC.reshape(-1, n_rows * C)                         # (K*G, R*C)
         Q2 = Q.reshape(PC2.shape[0], -1)                         # (K*G, W)
         out = jnp.einsum("xr,xw->rw", PC2, Q2,
-                         preferred_element_type=jnp.float32)
+                         preferred_element_type=jnp.float32,
+                         precision=DEPOSIT_PRECISION)
         return out.reshape(n_rows, C, -1).transpose(1, 0, 2)     # (C, R, W)
 
     return group_contribution
@@ -93,25 +96,15 @@ def make_group_contribution(lrk, C: int):
 
 def splat_atlas(pos_smooth, values, matrix, resolution, scale,
                 extra_mask=None, pyramid: PyramidSpec | None = None,
-                depth_channel=False, engine: str | None = None,
-                presorted_buckets=None, giants="auto",
-                _stop_after: str | None = None):
+                depth_channel=False, presorted_buckets=None, giants="auto"):
     """Matmul-based splatter; same contract as splat.splat_scatter.
 
-    ``engine``: 'pallas' (fused TPU kernel), 'scan' (pure-XLA fallback), or
-    None for automatic selection (pallas on TPU).
     ``presorted_buckets``: per-particle static smoothing buckets signalling
     that the arrays are already in (bucket, Morton) order with padded runs
     (ops/morton.py) — the per-frame sort is skipped entirely and levels are
     derived from the buckets.
-    ``_stop_after``: profiling aid (benchmarks/breakdown.py): truncate the
-    pipeline after 'frontend' / 'anchors' / 'kernel' / 'spill' and return
-    whatever is computed so far — NOT the normal contract.
     Returns (image (res, res, C), spilled_dropped count).
     """
-    if engine is None:
-        engine = "pallas" if jax.default_backend() == "tpu" else "scan"
-
     if pyramid is None:
         pyramid = default_pyramid(resolution)
     lrk = kernels.lowrank_kernel()
@@ -127,7 +120,6 @@ def splat_atlas(pos_smooth, values, matrix, resolution, scale,
                                level_override=level_override)
     C = values.shape[1] + (1 if depth_channel else 0)
     n = pos_smooth.shape[0]
-    from .splat_pallas import SUBGROUPS
     # group size adapts to the scene size: sparse scenes need smaller groups
     # so a group's (band, column) span still fits its accumulation window
     # (the column-LOD path relies on this n-based choice plus the layout's
@@ -138,8 +130,7 @@ def splat_atlas(pos_smooth, values, matrix, resolution, scale,
         G = 128
     else:
         G = 64
-    pad_quantum = G * SUBGROUPS
-    n_pad = max(pad_quantum, ((n + pad_quantum - 1) // pad_quantum) * pad_quantum)
+    n_pad = max(G, ((n + G - 1) // G) * G)
 
     row_offs, atlas_rows, atlas_cols = atlas_layout(pyramid)
     res_per_level = jnp.asarray(pyramid.level_resolutions, dtype=jnp.float32)
@@ -205,10 +196,8 @@ def splat_atlas(pos_smooth, values, matrix, resolution, scale,
         inv_h_s = pad_to(inv_h, 1.0)
         coef_s = pad_to(coef, 0.0)
     else:
-        # sort key: (row band, tiny class, column). Segregating tiny (CIC)
-        # splats within each band lets the Pallas kernel take a rank-1
-        # hat-only fast path for all-tiny groups; masked/invisible particles
-        # take the sentinel key so whole groups of them can be skipped.
+        # sort key: (row band, tiny class, column); masked/invisible
+        # particles take the sentinel key and collect in trailing groups.
         band = jnp.floor(ay / BAND).astype(jnp.int32)
         xkey = jnp.clip(jnp.floor(ax).astype(jnp.int32), 0, 2047)
         key = band * 4096 + jnp.where(parts["tiny"], 0, 2048) + xkey
@@ -230,53 +219,32 @@ def splat_atlas(pos_smooth, values, matrix, resolution, scale,
         _, ay_s, ax_s, inv_h_s = sorted_ops[:4]
         coef_s = jnp.stack(sorted_ops[4:], axis=-1)
 
-    if _stop_after == "frontend":
-        return ay_s, ax_s, inv_h_s, coef_s
-
     n_groups = n_pad // G
     # per-particle true support radius in level pixels (the deposit is
     # exactly zero beyond it): 1 for CIC hats, KERNEL_SUPPORT * h_eff for
     # polynomials, FOOT for oversize footprint-truncated splats.  Anchoring
     # windows and fit tests on it (instead of the worst-case FOOT) shrinks
-    # group spans by up to 14 px, moving most groups into smaller size
-    # classes and reducing spills.
+    # group spans by up to 14 px and reduces spills.
     sup_s = jnp.where(inv_h_s < 0.0, 1.0,
                       jnp.minimum(kernels.KERNEL_SUPPORT / inv_h_s, FOOT))
     ay_lo = ay_s - sup_s
     ay_hi = ay_s + sup_s
     ax_lo = ax_s - sup_s
     ax_hi = ax_s + sup_s
-    ay_g2 = ay_s.reshape(n_groups, G)
-    ax_g2 = ax_s.reshape(n_groups, G)
     lo_r = ay_lo.reshape(n_groups, G).min(axis=1)
-    hi_r = ay_hi.reshape(n_groups, G).max(axis=1)
     lo_c = ax_lo.reshape(n_groups, G).min(axis=1)
-    hi_c = ax_hi.reshape(n_groups, G).max(axis=1)
     # window anchor per group: min supported row band / column in the group
-    window_rows = 96 if presorted_buckets is not None else WINDOW_ROWS
+    window_rows = (PRESORTED_WINDOW_ROWS if presorted_buckets is not None
+                   else WINDOW_ROWS)
     w0 = (jnp.floor(lo_r / BAND).astype(jnp.int32) * BAND)
     w0 = jnp.clip(w0, 0, ((atlas_rows - window_rows) // BAND) * BAND)
-    c0e = jnp.floor(lo_c).astype(jnp.int32)
-
-    if engine == "pallas":
-        from . import splat_pallas
-        # the DMA window is lane-aligned; the kernel evaluates profiles over
-        # PROFILE_COLS columns from the exact base c0e and roll-places them,
-        # so the span allowance is measured from c0e, not the aligned start
-        c0 = jnp.clip((c0e // splat_pallas.COL_ALIGN) * splat_pallas.COL_ALIGN,
-                      0, atlas_cols - splat_pallas.WINDOW_COLS)
-        c0e = jnp.clip(c0e, c0,
-                       c0 + splat_pallas.WINDOW_COLS - splat_pallas.PROFILE_COLS)
-        span_cols = splat_pallas.PROFILE_COLS
-    else:
-        c0 = jnp.clip(c0e, 0, atlas_cols - WINDOW_COLS)
-        c0e = c0
-        span_cols = WINDOW_COLS
+    c0 = jnp.clip(jnp.floor(lo_c).astype(jnp.int32), 0,
+                  atlas_cols - WINDOW_COLS)
 
     w0_rep = jnp.repeat(w0, G).astype(jnp.float32)
-    c0_rep = jnp.repeat(c0e, G).astype(jnp.float32)
+    c0_rep = jnp.repeat(c0, G).astype(jnp.float32)
     fits = ((ay_hi < w0_rep + window_rows)
-            & (ax_hi < c0_rep + span_cols)
+            & (ax_hi < c0_rep + WINDOW_COLS)
             & (ax_lo >= c0_rep))
     coef_fit = jnp.where(fits[:, None], coef_s, 0.0)
 
@@ -297,45 +265,12 @@ def splat_atlas(pos_smooth, values, matrix, resolution, scale,
                                              (0, w0_g, c0_g))
         return atlas, None
 
-    if engine == "pallas":
-        from . import splat_pallas
-        from .splat import H_MAX
-        interpret = jax.default_backend() != "tpu"
-        # size class per group: smallest (rows, cols) profile-evaluation
-        # extent that bounds every member's supported footprint (max over
-        # the group, including spilled members — conservative for the rare
-        # spill groups)
-        w0f = w0.astype(jnp.float32)
-        c0ef = c0e.astype(jnp.float32)
-        sizes = jnp.full_like(w0, splat_pallas.FULL_CLASS)
-        for sz in range(len(splat_pallas.SIZE_CLASSES) - 2, -1, -1):
-            r_e, c_e = splat_pallas.SIZE_CLASSES[sz]
-            r_e = window_rows if r_e is None else min(r_e, window_rows)
-            c_e = splat_pallas.PROFILE_COLS if c_e is None else c_e
-            fit_sz = (hi_r < w0f + r_e) & (hi_c < c0ef + c_e)
-            sizes = jnp.where(fit_sz, sz, sizes)
-        flags = splat_pallas.group_flags(
-            inv_h_s.reshape(n_groups, G),
-            coef_fit.reshape(n_groups, G, C), H_MAX, sizes=sizes)
-        if _stop_after == "anchors":
-            return w0, c0, c0e, coef_fit, flags
-        atlas = splat_pallas.accumulate_groups_pallas(
-            ay_s.reshape(n_groups, 1, G),
-            ax_s.reshape(n_groups, 1, G),
-            inv_h_s.reshape(n_groups, 1, G),
-            coef_fit.reshape(n_groups, G, C).transpose(0, 2, 1),
-            w0, c0, c0e, flags, atlas_rows=atlas_rows, atlas_cols=atlas_cols,
-            C=C, group=G, interpret=interpret, window_rows=window_rows)
-    else:
-        atlas0 = jnp.zeros((C, atlas_rows, atlas_cols), dtype=jnp.float32)
-        per_group = (ay_g2, ax_g2,
-                     inv_h_s.reshape(n_groups, G),
-                     coef_fit.reshape(n_groups, G, C),
-                     w0, c0)
-        atlas, _ = jax.lax.scan(body, atlas0, per_group)
-
-    if _stop_after == "kernel":
-        return atlas
+    atlas0 = jnp.zeros((C, atlas_rows, atlas_cols), dtype=jnp.float32)
+    per_group = (ay_s.reshape(n_groups, G), ax_s.reshape(n_groups, G),
+                 inv_h_s.reshape(n_groups, G),
+                 coef_fit.reshape(n_groups, G, C),
+                 w0, c0)
+    atlas, _ = jax.lax.scan(body, atlas0, per_group)
 
     # ---- spill pass: particles too sparse for their group window ----------
     spilled = ~fits & (jnp.abs(coef_s).sum(axis=1) > 0.0)
@@ -343,12 +278,10 @@ def splat_atlas(pos_smooth, values, matrix, resolution, scale,
     n_spill = per_group_spill.sum()
     atlas, dropped = spill_pass(
         atlas, ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
-        n_spill, C=C, G=G, engine=engine, atlas_rows=atlas_rows,
+        n_spill, C=C, G=G, atlas_rows=atlas_rows,
         atlas_cols=atlas_cols, window_rows=window_rows,
         group_contribution=group_contribution)
 
-    if _stop_after == "spill":
-        return atlas, dropped
     image = collapse_atlas(atlas, pyramid)
     if giant_args is not None:
         image = image + splat_giant.giant_image(*giant_args, resolution)
@@ -356,9 +289,8 @@ def splat_atlas(pos_smooth, values, matrix, resolution, scale,
 
 
 def spill_pass(atlas, ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
-               n_spill, *, C, G, engine, atlas_rows, atlas_cols,
-               window_rows, group_contribution=None, group_cap=None,
-               t3_cap=None):
+               n_spill, *, C, G, atlas_rows, atlas_cols, window_rows,
+               group_contribution):
     """Deposit spilled particles (too sparse for their group's window).
 
     Re-runs the same windowed machinery with much smaller groups on the
@@ -366,42 +298,23 @@ def spill_pass(atlas, ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
     spill counts (n_groups keys) + a contiguous row gather — never a
     full-length particle sort, which would cost as much as the main sort.
     Groups that small fit their windows except in pathologically empty
-    regions, whose few stragglers are dropped with an explicit count.
+    regions, whose few stragglers go to a third tier of one-particle
+    windows; what exceeds the tiers' capacities is dropped with an explicit
+    count.
 
-    ay_s/ax_s/inv_h_s: (n_pad,) anchors; coef_s: (n_pad, C) coefficients,
-    or a C-list of (n_pad,) channel arrays (the feed-kernel path — avoids
-    materializing a lane-hostile (n_pad, C) interleave; entries of
-    non-spilled particles may be anything, they are masked by ``spilled``);
-    group_contribution: the window-deposit closure, required for the 'scan'
-    engine only.  Returns (atlas, dropped_count).
+    ay_s/ax_s/inv_h_s: (n_pad,) anchors; coef_s: (n_pad, C) coefficients;
+    group_contribution: the window-deposit closure.  Returns
+    (atlas, dropped_count).
     """
-    from .splat_pallas import SUBGROUPS
-    if group_contribution is None:
-        group_contribution = make_group_contribution(kernels.lowrank_kernel(), C)
     n_groups = per_group_spill.shape[0]
     G_SPILL = max(16, G // 8)
-    # ``group_cap`` overrides the default spill budget: the interactive
-    # column path raises it 4x (whole-tier CHANGE frames put every group
-    # of a decimation tier in one launch, where the 128-group cap dropped
-    # a measured ~400-800 splats/frame at 2^26-2^27); EXPORT keeps the
-    # default — its piece launches spill far less per group and pay the
-    # spill pass on every piece.
-    cap = config.SPLAT_SPILL_GROUP_CAP if group_cap is None else group_cap
-    k_groups = min(n_groups, cap)
-    # tier-2 pallas group count must stay a SUBGROUPS multiple
-    k_groups = max(1, (k_groups * (G // G_SPILL)) // SUBGROUPS) \
-        * SUBGROUPS * G_SPILL // G
+    k_groups = min(n_groups, config.SPLAT_SPILL_GROUP_CAP)
     spill_cap = k_groups * G
 
     def do_spill(atlas):
         _, top_idx = jax.lax.top_k(per_group_spill, k_groups)
         # layout order, not spill-count order: gathered groups keep their
-        # Morton adjacency, so consecutive spill subgroups share the DMA
-        # band instead of re-anchoring (and flushing + reloading the
-        # full-width window scratch) at nearly every subgroup — measured
-        # ~18 ms -> ~4 ms on the 2^26 narrow-column launch.  A k_groups-
-        # element index sort, NOT the 65K-row payload sort the NOTE below
-        # rejects.
+        # spatial adjacency, so consecutive spill subgroups share bands
         top_idx = jnp.sort(top_idx)
 
         def gather(arr):
@@ -412,23 +325,7 @@ def spill_pass(atlas, ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
         s_ay = gather(ay_s)[:, 0]
         s_ax = gather(ax_s)[:, 0]
         s_ih = gather(inv_h_s)[:, 0]
-        if isinstance(coef_s, (list, tuple)):
-            # channels gathered separately, interleaved only after the
-            # spill_cap-sized compaction
-            s_coef = jnp.stack([gather(cc)[:, 0] for cc in coef_s], axis=-1)
-            s_coef = jnp.where(valid[:, None], s_coef, 0.0)
-        else:
-            s_coef = jnp.where(valid[:, None], gather(coef_s), 0.0)
-
-        # NOTE (measured, do not "fix" casually): the within-group shuffle
-        # randomizes rows inside gathered groups, so G_SPILL subgroups span
-        # their group's whole row extent; at >= 2^24 a ~1000-straggler tier
-        # 3 results.  Row-sorting the compacted spills here removes the
-        # stragglers, and the 9-operand 65K sort costs only 0.69 ms alone —
-        # but INSIDE this cond branch (which contains the pallas tier-2
-        # call) it cost +15 ms/frame of lost pipelining at 2^22, the same
-        # pathology as nesting conds around pallas calls.  Leave tier 3 to
-        # handle them.
+        s_coef = jnp.where(valid[:, None], gather(coef_s), 0.0)
 
         n_sg = spill_cap // G_SPILL
         ay2 = s_ay.reshape(n_sg, G_SPILL)
@@ -438,121 +335,37 @@ def spill_pass(atlas, ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
         ay2m = jnp.where(jnp.isfinite(ay2m), ay2m, float(ROW_PAD))
         sw0 = (jnp.floor((ay2m - FOOT) / BAND).astype(jnp.int32) * BAND)
         sw0 = jnp.clip(sw0, 0, ((atlas_rows - window_rows) // BAND) * BAND)
-        # spill windows span the full atlas width, so only row-stragglers
-        # (pathologically empty 40-row stretches) fall through to tier 3
-        sc0 = jnp.zeros_like(sw0)
 
+        # spill windows span the full atlas width, so only row-stragglers
+        # (pathologically empty stretches) fall through to tier 3
         sw0_rep = jnp.repeat(sw0, G_SPILL).astype(jnp.float32)
         fits2 = (s_ay + FOOT < sw0_rep + window_rows) & valid
         s_coef_fit = jnp.where(fits2[:, None], s_coef, 0.0)
         straggler = ~fits2 & valid
         n3 = straggler.sum()
 
-        if engine == "pallas":
-            from . import splat_pallas
-            from .splat import H_MAX
-            interpret = jax.default_backend() != "tpu"
-            sflags = splat_pallas.group_flags(
-                s_ih.reshape(n_sg, G_SPILL),
-                s_coef_fit.reshape(n_sg, G_SPILL, C), H_MAX)
-            atlas = splat_pallas.accumulate_groups_pallas(
-                s_ay.reshape(n_sg, 1, G_SPILL),
-                s_ax.reshape(n_sg, 1, G_SPILL),
-                s_ih.reshape(n_sg, 1, G_SPILL),
-                s_coef_fit.reshape(n_sg, G_SPILL, C).transpose(0, 2, 1),
-                sw0, sc0, sc0, sflags, atlas_rows=atlas_rows,
-                atlas_cols=atlas_cols, C=C, group=G_SPILL,
-                interpret=interpret, atlas0=atlas,
-                window_cols=atlas_cols, window_rows=window_rows)
-        else:
-            rows_w = jnp.arange(window_rows, dtype=jnp.float32)
-            cols_full = jnp.arange(atlas_cols, dtype=jnp.float32)
+        rows_w = jnp.arange(window_rows, dtype=jnp.float32)
+        cols_full = jnp.arange(atlas_cols, dtype=jnp.float32)
 
-            def sbody(atlas, inputs):
-                ay_g, ax_g, ih_g, coef_g, w0_g = inputs
-                contrib = group_contribution(ay_g, ax_g, ih_g, coef_g,
-                                             w0_g.astype(jnp.float32),
-                                             jnp.float32(0.0),
-                                             rows_w, cols_full)
-                cur = jax.lax.dynamic_slice(atlas, (0, w0_g, 0),
-                                            (C, window_rows, atlas_cols))
-                return jax.lax.dynamic_update_slice(atlas, cur + contrib,
-                                                    (0, w0_g, 0)), None
+        def sbody(atlas, inputs):
+            ay_g, ax_g, ih_g, coef_g, w0_g = inputs
+            contrib = group_contribution(ay_g, ax_g, ih_g, coef_g,
+                                         w0_g.astype(jnp.float32),
+                                         jnp.float32(0.0),
+                                         rows_w, cols_full)
+            cur = jax.lax.dynamic_slice(atlas, (0, w0_g, 0),
+                                        (C, window_rows, atlas_cols))
+            return jax.lax.dynamic_update_slice(atlas, cur + contrib,
+                                                (0, w0_g, 0)), None
 
-            atlas, _ = jax.lax.scan(
-                sbody, atlas,
-                (ay2, s_ax.reshape(n_sg, G_SPILL),
-                 s_ih.reshape(n_sg, G_SPILL),
-                 s_coef_fit.reshape(n_sg, G_SPILL, C), sw0))
+        atlas, _ = jax.lax.scan(
+            sbody, atlas,
+            (ay2, s_ax.reshape(n_sg, G_SPILL),
+             s_ih.reshape(n_sg, G_SPILL),
+             s_coef_fit.reshape(n_sg, G_SPILL, C), sw0))
 
         # ---- final tier: per-particle windows (fit by construction) -------
-        # t3_cap: the interactive column path raises the straggler budget —
-        # decimation-tier groups cover 8x the volume of main-layout groups,
-        # so a few of them span several windows and spill wholesale
-        # (measured at 2^26: 132 spilling groups, ~1800 stragglers — T3 at
-        # the default 1024 dropped ~760 splats per whole-tier CHANGE frame)
-        T3 = min(1024 if t3_cap is None else t3_cap, spill_cap)
-
-        if engine == "pallas" and (n_groups >= TIER3_PALLAS_MIN_GROUPS
-                                   or t3_cap is not None):
-            # t3_cap set (the interactive column path): always the
-            # unconditional group=1 pallas tier — the cond-scan alternative
-            # below costs ~150 us per scan step on HBM read-modify-writes
-            # (a measured 700 ms at t3_cap=4096 on the 2^27 deepest tier,
-            # vs ~3 ms for the pallas pass)
-            # big launches: shuffled spill subgroups routinely span > 96
-            # rows, so tier 3 fires (~1000 stragglers at 2^24) and BOTH of
-            # the conditional encodings are slow — a cond around the scan
-            # costs ~10 ms when taken, and a sort in this branch costs
-            # +15 ms of lost pipelining (see NOTE above).  Run tier 3
-            # UNCONDITIONALLY as a group=1 pallas pass: top_k compaction
-            # (no sort), 1024 one-particle groups = 128 grid steps, windows
-            # fit by construction, inactive when no stragglers.
-            from . import splat_pallas
-            from .splat import H_MAX
-            interpret = jax.default_backend() != "tpu"
-            _, idx3 = jax.lax.top_k(straggler.astype(jnp.float32)
-                                    * (2.0 - jnp.arange(spill_cap,
-                                                        dtype=jnp.float32)
-                                       / spill_cap), T3)
-            valid3 = jnp.take(straggler, idx3)
-            t_ay = jnp.take(s_ay, idx3)
-            t_ax = jnp.take(s_ax, idx3)
-            t_ih = jnp.take(s_ih, idx3)
-            t_coef = jnp.where(valid3[:, None],
-                               jnp.take(s_coef, idx3, axis=0), 0.0)
-            tw0_raw = (jnp.floor((t_ay - FOOT) / BAND).astype(jnp.int32)
-                       * BAND)
-            tw0 = jnp.clip(tw0_raw, 0,
-                           ((atlas_rows - window_rows) // BAND) * BAND)
-            from .splat_pallas import COL_ALIGN, FULL_CLASS, PROFILE_COLS
-            ce_raw = jnp.floor(t_ax - FOOT).astype(jnp.int32)
-            tc0 = jnp.clip((ce_raw // COL_ALIGN) * COL_ALIGN, 0,
-                           atlas_cols - WINDOW_COLS)
-            tce = jnp.clip(ce_raw, tc0, tc0 + WINDOW_COLS - PROFILE_COLS)
-            # one-particle groups with an unclipped anchor fit size class 1
-            # (32 x 64): span <= 2*FOOT + 8 rows from the 8-aligned anchor,
-            # <= 17 cols from ce — full-window eval per straggler costs ~6x
-            # the VMEM read-modify-write for nothing.  An anchor CLIPPED at
-            # the atlas bottom, however, leaves the splat center up to
-            # window_rows-ish rows below the window start (a coarsest-level
-            # footprint can reach 39-46 rows from the clipped anchor at
-            # res 200-1024), so those rare stragglers take FULL_CLASS —
-            # class-1 eval would silently truncate their deposit rows >= 32
-            t_sizes = jnp.where(tw0_raw != tw0, jnp.int32(FULL_CLASS),
-                                jnp.int32(1))
-            tflags = splat_pallas.group_flags(
-                t_ih.reshape(T3, 1), t_coef.reshape(T3, 1, C), H_MAX,
-                sizes=t_sizes)
-            atlas = splat_pallas.accumulate_groups_pallas(
-                t_ay.reshape(T3, 1, 1), t_ax.reshape(T3, 1, 1),
-                t_ih.reshape(T3, 1, 1),
-                t_coef.reshape(T3, 1, C).transpose(0, 2, 1),
-                tw0, tc0, tce, tflags, atlas_rows=atlas_rows,
-                atlas_cols=atlas_cols, C=C, group=1, interpret=interpret,
-                atlas0=atlas, window_rows=window_rows)
-            not_gathered = n_spill - valid.sum()
-            return atlas, not_gathered + jnp.maximum(n3 - T3, 0)
+        T3 = min(1024, spill_cap)
 
         def do_t3(atlas):
             big3 = jnp.int32(np.iinfo(np.int32).max)
@@ -572,7 +385,6 @@ def spill_pass(atlas, ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
             # per-particle column windows always fit (footprint <= 17 px)
             tc0 = jnp.floor(t_ax - FOOT).astype(jnp.int32)
             tc0 = jnp.clip(tc0, 0, atlas_cols - WINDOW_COLS)
-            rows_w = jnp.arange(window_rows, dtype=jnp.float32)
             cols_w = jnp.arange(WINDOW_COLS, dtype=jnp.float32)
 
             def tbody(atlas, inputs):
@@ -598,252 +410,9 @@ def spill_pass(atlas, ay_s, ax_s, inv_h_s, coef_s, spilled, per_group_spill,
                         lambda a: (a, jnp.int32(0)), atlas)
 
 
-def splat_atlas_fields(fields, values_cm, matrix, resolution, scale,
-                       group_buckets, mask=None,
-                       pyramid: PyramidSpec | None = None,
-                       depth_channel=False, piece=None, prange=None,
-                       engine: str | None = None, giants="auto",
-                       subgroups: int | None = None,
-                       spill_group_cap: int | None = None,
-                       spill_t3_cap: int | None = None,
-                       _stop_after: str | None = None):
-    """The fastest presorted splat path: fused Pallas front-end + kernel.
-
-    Same image contract as ``splat_atlas(..., presorted_buckets=...)`` but
-    over the *transposed field* layout, with the whole front-end fused into
-    one bandwidth-bound Pallas pass (ops/splat_feed.py):
-
-    fields: (x, y, z, h) each (n_groups, GROUP) f32 presorted matrices;
-    values_cm: tuple of C per-channel (n_groups, GROUP) f32 matrices;
-    group_buckets: (n_groups,) int32 smoothing bucket per group (buckets are
-    constant within a group because run padding is a pad_group multiple,
-    ops/morton.py);
-    mask: optional (n_groups, GROUP) f32 cull mask (>0 keeps) — computed
-    once per *selection change*, not per frame;
-    piece: optional (g0, piece_groups) rendering only groups
-    [g0, g0+piece_groups) — the EXPORT piece loop without dynamic_slice
-    copies.  g0 must be a multiple of the feed block (64 groups, or the
-    largest power of two dividing piece_groups); piece_groups is static
-    and a SUBGROUPS multiple;
-    prange: optional (start, count) restricting active particles to global
-    slots [start, start+count) (partial EXPORT chunks).
-    giants: 'auto' (internal exact selection — engine cross-check tests),
-    'none' (truncated deposit), or a smoothing-bucket threshold: giants in
-    buckets >= it are excluded from the windowed deposit and the caller
-    adds one dense full-support layer per frame (render/sph._giant_layer).
-    _stop_after: profiling aid (like splat_atlas's): truncate after
-    'feed' / 'kernel' / 'spill' and return the partial result — NOT the
-    normal contract.
-
-    Returns (image (res, res, C), spilled_dropped count).
-    """
-    from . import splat_feed, splat_pallas
-    from .splat import exp2_int, levels_from_buckets
-
-    x, _, _, _ = fields
-    n_groups, G = x.shape
-    C_in = len(values_cm)
-    C = C_in + (1 if depth_channel else 0)
-    if pyramid is None:
-        pyramid = default_pyramid(resolution)
-    if engine is None:
-        engine = "pallas" if jax.default_backend() == "tpu" else "scan"
-    interpret = jax.default_backend() != "tpu"
-    row_offs, atlas_rows, atlas_cols = atlas_layout(pyramid)
-    window_rows = 96
-    sentinel_ay = float(atlas_rows - ROW_PAD + FOOT + 2.0)
-
-    px_per_world = resolution / (2.0 * scale)
-    lev = levels_from_buckets(group_buckets, px_per_world, pyramid.num_levels)
-    pergroup = jnp.stack(
-        [group_buckets.astype(jnp.float32),
-         exp2_int(-lev), exp2_int(lev),
-         jnp.asarray(row_offs, jnp.float32)[lev],
-         jnp.asarray(pyramid.level_resolutions, jnp.float32)[lev],
-         jnp.zeros((n_groups,), jnp.float32),
-         jnp.zeros((n_groups,), jnp.float32),
-         jnp.zeros((n_groups,), jnp.float32)], axis=1)
-    m = jnp.asarray(matrix, jnp.float32)
-    ppw = jnp.asarray(px_per_world, jnp.float32)
-    params_f = jnp.concatenate(
-        [m[0, :4], m[1, :4], m[2, :4],
-         jnp.stack([ppw, 1.0 / ppw, jnp.float32(0), jnp.float32(0)])])
-
-    if piece is None:
-        g0 = jnp.int32(0)
-        piece_groups = n_groups
-    else:
-        g0, piece_groups = piece
-    if prange is None:
-        start = jnp.int32(0)
-        count = jnp.int32(0)
-        ranged = False
-    else:
-        start, count = prange
-        ranged = True
-
-    # giants: same three modes as splat_atlas.  A threshold (global slot
-    # index) feeds the in-kernel gate via sp_i[3]; the dense layer is the
-    # caller's, rendered once per frame (render/sph._giant_layer).  'auto'
-    # (engine cross-check tests) reconstructs the flat per-particle view
-    # and replicates the flat path's top_k selection bit-for-bit, folding
-    # the exclusion into the cull-mask operand.
-    from . import splat_giant
-    giant_args = None
-    if giants == "auto":
-        from .splat import splat_coefficients
-        ps_flat = jnp.stack([f.reshape(-1) for f in fields], axis=1)
-        vals_flat = jnp.stack([v.reshape(-1) for v in values_cm], axis=1)
-        lev_flat = jnp.broadcast_to(lev[:, None],
-                                    (n_groups, G)).reshape(-1)
-        emask = (mask > 0.0).reshape(-1) if mask is not None else None
-        # replicate the kernel's piece/prange gating so a piece loop
-        # deposits each giant exactly once
-        slot_ids = jnp.arange(n_groups * G, dtype=jnp.int32)
-        gate = None
-        if piece is not None:
-            gids = slot_ids // G
-            gate = (gids >= g0) & (gids < g0 + piece_groups)
-        if prange is not None:
-            pr = (slot_ids >= start) & (slot_ids < start + count)
-            gate = pr if gate is None else gate & pr
-        if gate is not None:
-            emask = gate if emask is None else emask & gate
-        parts = splat_coefficients(ps_flat, vals_flat, matrix, resolution,
-                                   scale, pyramid, emask, mode="lowrank",
-                                   depth_channel=depth_channel,
-                                   level_override=lev_flat)
-        gidx, gvalid, excluded = splat_giant.select_giants_topk(
-            parts["giant"], parts["h_px"], splat_giant.CAP)
-        giant_args = (parts["cy_fine"][gidx], parts["cx_fine"][gidx],
-                      parts["h_px"][gidx],
-                      parts["coef_giant"][gidx] * gvalid[:, None])
-        keep = jnp.where(excluded, 0.0, 1.0).reshape(n_groups, G)
-        mask = keep if mask is None else mask * keep
-        # the mask carries the exclusion; disable the in-kernel bucket gate
-        bucket_thresh = jnp.int32(splat_giant.BUCKET_DISABLED)
-    elif giants == "none":
-        bucket_thresh = jnp.int32(splat_giant.BUCKET_DISABLED)
-    else:
-        bucket_thresh = jnp.asarray(giants, jnp.int32)
-    sp_i = jnp.stack([jnp.asarray(g0, jnp.int32),
-                      jnp.asarray(start, jnp.int32),
-                      jnp.asarray(count, jnp.int32),
-                      bucket_thresh])
-
-    (ay, ax, ih, cfit, cspill, w0, c0, ce, flags,
-     nspill) = splat_feed.splat_feed_pallas(
-        fields, values_cm, pergroup, params_f, sp_i, mask,
-        C_in=C_in, depth_channel=depth_channel, resolution=resolution,
-        atlas_rows=atlas_rows, atlas_cols=atlas_cols,
-        window_rows=window_rows, band=BAND, col_pad=float(COL_PAD),
-        foot=float(FOOT), piece_groups=piece_groups, ranged=ranged,
-        has_mask=mask is not None, interpret=interpret,
-        sentinel_ay=sentinel_ay)
-    if _stop_after == "feed":
-        return ay, jnp.int32(0)
-
-    atlas = splat_pallas.accumulate_groups_pallas(
-        ay, ax, ih, cfit, w0, c0, ce, flags, atlas_rows=atlas_rows,
-        atlas_cols=atlas_cols, C=C, group=G, interpret=interpret,
-        window_rows=window_rows,
-        subgroups=(splat_pallas.SUBGROUPS if subgroups is None
-                   else subgroups))
-    if _stop_after == "kernel":
-        return atlas, jnp.int32(0)
-
-    # NOTE: no extra cond around spill_pass — it guards itself, and nesting
-    # a second conditional around the side-effecting pallas calls costs a
-    # measured ~7 ms/frame of lost pipelining on v5e
-    chans = [cc.reshape(-1) for cc in cspill]
-    spilled = jnp.abs(chans[0])
-    for cc in chans[1:]:
-        spilled = spilled + jnp.abs(cc)
-    spilled = spilled > 0.0
-    atlas, dropped = spill_pass(
-        atlas, ay.reshape(-1), ax.reshape(-1), ih.reshape(-1), chans,
-        spilled, nspill, nspill.sum(), C=C, G=G, engine=engine,
-        atlas_rows=atlas_rows, atlas_cols=atlas_cols,
-        window_rows=window_rows, group_cap=spill_group_cap,
-        t3_cap=spill_t3_cap)
-    if _stop_after == "spill":
-        return atlas, dropped
-    image = collapse_atlas(atlas, pyramid)
-    if giant_args is not None:
-        image = image + splat_giant.giant_image(*giant_args, resolution)
-    return image, dropped
-
-
-def slice_column_fields(fields, values_cm, group_buckets, mask, col0,
-                        width: int, merge: bool = True,
-                        pad_multiple: int = 8):
-    """Slice columns [col0, col0+width) of the transposed field layout for
-    ``splat_atlas_fields``.
-
-    ``merge=True`` (legacy semantics, render/sph._render_block_columns): a
-    width-w slice of the (n_groups, pad_group) matrices reshapes row-major
-    into merged groups of pad_group/w adjacent original groups; the
-    layout's run padding keeps merged groups single-level
-    (ops/morton.min_slice_width).  Merged groups span the union of their
-    constituents' footprints, so narrow widths push many of them past the
-    deposit window into the (expensive) spill tiers.
-
-    ``merge=False``: keep one group per original group — (n_groups, width)
-    matrices whose window spans stay as tight as the full-width render's.
-    The caller should raise ``splat_atlas_fields(subgroups=...)``
-    proportionally (pad_group/width * SUBGROUPS) so the per-grid-step
-    pipeline latency amortizes over the same particle count per step.
-
-    Groups are padded to a ``pad_multiple`` row multiple with inactive
-    rows.  Returns (fields, values_cm, group_buckets, mask)."""
-    from .morton import PAD_POS
-    ng, pad_group = fields[0].shape
-    assert merge is False or pad_group % width == 0
-    assert width <= pad_group
-    c0 = jnp.clip(col0, 0, pad_group - width)
-    if width != pad_group:
-        if merge:
-            m = pad_group // width
-
-            def slice_cols(arr):
-                s = jax.lax.dynamic_slice(arr, (0, c0), (ng, width))
-                return s.reshape(-1, pad_group)
-
-            group_buckets = group_buckets.reshape(-1, m)[:, 0]
-        else:
-            # any width works un-merged (no reshape): the renderer uses
-            # this to cover a whole remaining column range in ONE launch
-            def slice_cols(arr):
-                return jax.lax.dynamic_slice(arr, (0, c0), (ng, width))
-
-        fields = tuple(slice_cols(f) for f in fields)
-        values_cm = tuple(slice_cols(v) for v in values_cm)
-        mask = None if mask is None else slice_cols(mask)
-    g_cols = fields[0].shape[1]
-    mg = fields[0].shape[0]
-    pad_rows = (-mg) % pad_multiple
-    if pad_rows:
-        def pad(arr, fill):
-            return jnp.concatenate(
-                [arr, jnp.full((pad_rows, g_cols), fill, arr.dtype)])
-
-        fields = tuple(pad(f, PAD_POS) for f in fields)
-        values_cm = tuple(pad(v, 0.0) for v in values_cm)
-        group_buckets = jnp.concatenate(
-            [group_buckets, jnp.broadcast_to(group_buckets[-1:],
-                                             (pad_rows,))])
-        if mask is not None:
-            mask = pad(mask, 0.0)
-    return fields, values_cm, group_buckets, mask
-
-
 def collapse_atlas(atlas: jnp.ndarray, pyramid: PyramidSpec) -> jnp.ndarray:
     """Crop levels from the channel-major (C, rows, cols) atlas, upsample
-    coarse->fine, sum, and return the image as (res, res, C).
-
-    The whole splat pipeline keeps the atlas channel-major: with C=2..4 in
-    the minor (lane) dim the TPU would waste nearly the whole vector and
-    every kernel-boundary handoff would be a 23MB relayout."""
+    coarse->fine, sum, and return the image as (res, res, C)."""
     row_offs, _, _ = atlas_layout(pyramid)
     levels = []
     for l, res_l in enumerate(pyramid.level_resolutions):

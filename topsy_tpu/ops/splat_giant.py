@@ -12,14 +12,14 @@ sph.py:85).  Against the reference's committed pixel arrays the
 truncation shows up as a ~20% mean / ~45% std disagreement dominated by
 image corners (wings missing) and splat interiors (mass squeezed in).
 
-This module restores exactness the TPU way: splats whose support exceeds
+This module restores exactness without scatters: splats whose support exceeds
 the footprint window at their level (``h_l > GIANT_H``) are *excluded*
 from the windowed deposit and instead accumulated densely over the full
 fine-resolution framebuffer via the separable low-rank kernel:
 
     out[y, x, c] = sum_k s_k sum_i P_k[i, y] * coef[i, c] * Q_k[i, x]
 
-i.e. ``rank * C`` matmuls of shape (res, cap) @ (cap, res) — pure MXU
+i.e. ``rank * C`` matmuls of shape (res, cap) @ (cap, res) — pure matrix
 work, no scatters, no dynamic shapes.  Full support is evaluated
 implicitly: the profile polynomials are constrained to vanish at the
 support edge, so off-support pixels contribute exactly zero and giants
@@ -204,7 +204,7 @@ def zsplat_giant_image(cy, cx, h_px, z01, h_clip_half, qty, active,
     max-composites the returned (res, res, 2) [value, depth] layer.
 
     Work is chunked ``chunk`` giants at a time ((chunk, res, res)
-    intermediates) and scanned — elementwise VPU work, used once per view.
+    intermediates) and scanned — elementwise work, used once per view.
     """
     from .zsplat import HEMI_SUPPORT
     cap = cy.shape[0]
@@ -256,8 +256,7 @@ def select_giants_topk(giant_mask, h_px, cap: int):
     beyond-cap giants stay excluded=False and render truncated.
 
     Above 2^18 particles an exact top_k would dominate the launch
-    (effectively a device sort); ``approx_max_k`` (TPU-optimized, recall
-    ~0.95) is safe here because consistency is by construction — whatever
+    (effectively a device sort); ``approx_max_k`` (recall ~0.95) is safe here because consistency is by construction — whatever
     set it returns is both densely rendered and excluded — and a missed
     giant merely stays on the mass-conserving truncated path.
     """

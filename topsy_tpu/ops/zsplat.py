@@ -6,11 +6,10 @@ cut rasterize hemispheres; a greater-compare depth test keeps the front-most
 fragment, outputting (quantity value, surface depth) per pixel, where the
 surface depth is clip_z + hemisphere_kernel * h_clipspace / 2.
 
-TPUs have no z-buffer; the winner is found with a two-pass windowed
-scatter-max (max depth, then select the matching fragment's payload).  This
-path is exact but scatter-bound — fine for tests/CPU and acceptable for the
-interactive surface mode at LOD particle counts; a Pallas max-blend tile
-kernel is the planned fast path.
+An array program has no z-buffer; the winner is found with a two-pass
+windowed scatter-max (max depth, then select the matching fragment's
+payload).  This path is exact and is the reference for the windowed
+front-most engine (ops/zsplat_atlas.py).
 
 Pyramid levels are combined by *max-compositing* (bilinear-upsampled coarse
 depth loses against finer fragments only where the finer content is in

@@ -1,15 +1,23 @@
-"""Atlas-windowed z-buffered splatting: the TPU fast path for surface mode.
+"""Atlas-windowed z-buffered splatting: the surface-mode engine.
 
-Drives ops/zsplat_pallas.py with the same presorted (bucket, Morton)
-machinery as the additive atlas splatter (ops/splat_atlas.py): per-group
-support-tight window anchors, size classes, banded DMA windows, and exact
-spill tiers — but the deposit keeps the front-most hemisphere fragment per
-pixel instead of accumulating (reference: src/topsy/sph.py:459-656).
+Uses the same presorted (bucket, Morton) machinery as the additive atlas
+splatter (ops/splat_atlas.py) — per-group support-tight window anchors in
+one stacked pyramid atlas, and bounded spill tiers — but each deposit keeps
+the front-most hemisphere fragment per pixel instead of accumulating
+(reference: src/topsy/sph.py:459-656).
+
+One ``lax.scan`` body serves the main pass and both spill tiers: each step
+forms a group's hemisphere fragments over each particle's footprint and
+max-composites them into the group's atlas window (depth max, then the
+largest value among the fragments at that depth).  The fragment arithmetic
+is the scatter-max reference's (ops/zsplat.py) term for term, in
+level-pixel coordinates, so with matched pyramid levels the two agree on
+coverage, depth and winners.
 
 Requires presorted input (the per-frame band sort is never paid: surface
 interactive frames use the column-LOD slices, exports the full presorted
-arrays).  The XLA scatter-max path (ops/zsplat.py) remains the reference
-implementation for CPU tests and non-presorted fallbacks.
+arrays).  The scatter-max path (ops/zsplat.py) remains the reference
+implementation.
 """
 
 from __future__ import annotations
@@ -21,19 +29,70 @@ import numpy as np
 from .. import config
 from .splat import H_MIN, H_TRUNC, PyramidSpec, default_pyramid, exp2_int, \
     levels_from_buckets, project
-from .splat_atlas import BAND, COL_PAD, FOOT, ROW_PAD, atlas_layout
-from .zsplat import HEMI_SUPPORT
-from .zsplat_pallas import (FLAG_ACTIVE, FULL_CLASS, PROFILE_COLS,
-                            SIZE_CLASSES, SUBGROUPS, WINDOW_COLS,
-                            accumulate_max_groups_pallas)
+from .splat_atlas import (BAND, COL_PAD, FOOT, PRESORTED_WINDOW_ROWS,
+                          ROW_PAD, WINDOW_COLS, atlas_layout)
+from .zsplat import HEMI_SUPPORT, hemisphere_kernel
 
 GROUP = 512
+WINDOW_ROWS = PRESORTED_WINDOW_ROWS
+
+
+def _front_scan(atlas, groups, *, window_rows: int, window_cols: int):
+    """Merge the front-most fragments of a sequence of particle groups into
+    the (2=[depth, value], rows, cols) atlas.
+
+    ``groups``: (cy, cx, roff, ih, z, hch, val, w0, c0) with the particle
+    fields shaped (n_steps, G) and the window anchors (w0, c0) shaped
+    (n_steps,).  cy/cx are level-pixel centres, roff the atlas row offset of
+    the particle's level (float), ih the inverse smoothing (<= 0 marks a
+    particle that deposits nothing here).
+
+    Each particle's fragments are its 2*FOOT x 2*FOOT footprint, the
+    reference's window (offsets -7..8 from the centre pixel); each step
+    max-scatters a group's footprints into its atlas window, depth first,
+    then the largest value among the fragments at the winning depth (the
+    window's current winner included)."""
+    size = window_rows * window_cols
+    off = jnp.arange(2 * int(FOOT), dtype=jnp.int32) - (int(FOOT) - 1)
+
+    def body(atlas, inputs):
+        cy, cx, roff, ih, z, hch, val, w0, c0 = inputs
+        py = jnp.floor(cy).astype(jnp.int32)[:, None] + off     # (G, F)
+        px = jnp.floor(cx).astype(jnp.int32)[:, None] + off
+        # integer pixel minus centre: one rounding, as in the reference
+        dy = py.astype(jnp.float32) - cy[:, None]
+        dx = px.astype(jnp.float32) - cx[:, None]
+        q = jnp.sqrt(dy[:, :, None] ** 2 + dx[:, None, :] ** 2) \
+            * ih[:, None, None]
+        k = hemisphere_kernel(q)                                 # (G, F, F)
+        r = py + roff.astype(jnp.int32)[:, None] - w0
+        c = px + COL_PAD - c0
+        ok = ((k >= 0.0) & (ih > 0.0)[:, None, None]
+              & ((r >= 0) & (r < window_rows))[:, :, None]
+              & ((c >= 0) & (c < window_cols))[:, None, :])
+        dep = jnp.where(ok, z[:, None, None] + k * hch[:, None, None],
+                        -jnp.inf).ravel()
+        idx = jnp.where(ok, r[:, :, None] * window_cols + c[:, None, :],
+                        size).ravel()
+        cur = jax.lax.dynamic_slice(atlas, (0, w0, c0),
+                                    (2, window_rows, window_cols))
+        cur_d, cur_v = cur[0].ravel(), cur[1].ravel()
+        new_d = cur_d.at[idx].max(dep, mode="drop")
+        win = ok.ravel() & (dep == new_d[jnp.minimum(idx, size - 1)])
+        vals = jnp.broadcast_to(val[:, None, None], ok.shape).ravel()
+        new_v = jnp.where(cur_d == new_d, cur_v, -jnp.inf).at[idx].max(
+            jnp.where(win, vals, -jnp.inf), mode="drop")
+        new = jnp.stack([new_d, new_v]).reshape(2, window_rows, window_cols)
+        return jax.lax.dynamic_update_slice(atlas, new, (0, w0, c0)), None
+
+    atlas, _ = jax.lax.scan(body, atlas, groups)
+    return atlas
 
 
 def zsplat_atlas(pos_smooth, values, matrix, resolution, scale,
                  presorted_buckets, density_cut=0.0, extra_mask=None,
                  pyramid: PyramidSpec | None = None, giants="none",
-                 group: int | None = None, subgroups: int | None = None,
+                 group: int | None = None,
                  spill_group_cap: int | None = None,
                  t3_cap: int | None = None):
     """(N,4) x (N,>=2 [mass, qty]) -> ((res, res, 2) [value, depth], dropped).
@@ -41,42 +100,34 @@ def zsplat_atlas(pos_smooth, values, matrix, resolution, scale,
     Same output contract as zsplat.zsplat_scatter; ``presorted_buckets``
     is required (arrays in ops/morton.py order).  Background depth is 0.
 
-    ``giants``: 'none' keeps the truncated/squeezed windowed hemisphere for
-    over-window splats (the zsplat_scatter-compatible legacy behavior), or
-    a smoothing-bucket threshold — those splats are dropped here and the
+    ``giants``: 'none' keeps the truncated windowed hemisphere for
+    over-window splats (the zsplat_scatter-compatible behavior), or a
+    smoothing-bucket threshold — those splats are dropped here and the
     caller max-composites the exact dense layer
     (ops/splat_giant.zsplat_giant_image) instead.
 
+    ``group``: particles per scan step; the surface column path passes the
+    slice width so each original presorted group keeps its own (tight)
+    window — flat slices reshape to one row per original group instead of
+    merging pad_group/width of them (merged unions flood the spill tiers).
+
     ``spill_group_cap`` / ``t3_cap``: spill-tier budget overrides.  The
-    whole-tier surface column path raises both (as the additive path does,
-    render/sph._render_block_columns_fields) — decimation-tier groups
+    whole-tier surface column path raises both: decimation-tier groups
     cover 8x the volume of main-layout groups, so whole-tier CHANGE frames
-    at 2^26-2^27 overflow the default budgets and silently drop splats.
-    Setting ``t3_cap`` also switches tier 3 to the unconditional group=1
-    pallas pass (the cond-wrapped scan costs ~150 us per straggler when
-    taken — see splat_atlas's identical policy).
+    overflow the default budgets.
     """
     if pyramid is None:
         pyramid = default_pyramid(resolution)
-    interpret = jax.default_backend() != "tpu"
 
     n = pos_smooth.shape[0]
-    # ``group`` override: the surface column path passes the slice width so
-    # each original presorted group keeps its own (tight) window — flat
-    # slices reshape to one row per original group instead of merging
-    # pad_group/width of them (merged unions flood the spill tiers, see
-    # render/sph._render_block_columns_fields); ``subgroups`` scales the
-    # kernel's groups-per-step so the per-step pipeline latency amortizes
-    # over an unchanged particle count
     G = group if group is not None else (
         GROUP if n >= 1 << 18 else (128 if n >= 1 << 14 else 64))
-    sg = SUBGROUPS if subgroups is None else subgroups
-    pad_quantum = G * sg
-    n_pad = max(pad_quantum, ((n + pad_quantum - 1) // pad_quantum) * pad_quantum)
+    n_pad = max(G, ((n + G - 1) // G) * G)
 
     row_offs, atlas_rows, atlas_cols = atlas_layout(pyramid)
     res_per_level = jnp.asarray(pyramid.level_resolutions, dtype=jnp.float32)
     row_offs_arr = jnp.asarray(row_offs, dtype=jnp.float32)
+    window_rows = WINDOW_ROWS
 
     # ---- front-end: projection, level placement, payload -------------------
     cx, cy, z01, h_px, visible = project(pos_smooth, matrix, resolution, scale)
@@ -105,18 +156,18 @@ def zsplat_atlas(pos_smooth, values, matrix, resolution, scale,
     h_clip_half = h_world / scale * 0.5
 
     res_l = res_per_level[lev]
+    # off-image splats are clipped into the guard margin, so they deposit
+    # only into padding (cropped later) — the reference's viewport clipping
     margin = float(COL_PAD) - FOOT + 4.0
     cyc = jnp.clip(cy_l, -margin, res_l + margin)
     cxc = jnp.clip(cx_l, -margin, res_l + margin)
-    ay = row_offs_arr[lev] + cyc
-    ax = COL_PAD + cxc
+    roff = row_offs_arr[lev]
     sentinel_ay = float(atlas_rows - ROW_PAD + FOOT + 2.0)
-    ay = jnp.where(jnp.isnan(ay), sentinel_ay, ay)
-    ax = jnp.where(jnp.isnan(ax), float(COL_PAD), ax)
-    ok = ok & jnp.isfinite(z01) & jnp.isfinite(h_clip_half)
-    inv_h = jnp.where(ok, 1.0 / h_eff, -1.0)
-    z01c = jnp.nan_to_num(z01)
-    hchc = jnp.nan_to_num(h_clip_half)
+    ay = jnp.where(jnp.isnan(cyc), sentinel_ay, roff + cyc)
+    ax = jnp.where(jnp.isnan(cxc), float(COL_PAD), COL_PAD + cxc)
+    ok = ok & jnp.isfinite(z01) & jnp.isfinite(h_clip_half) \
+        & jnp.isfinite(cyc) & jnp.isfinite(cxc)
+    inv_h = jnp.where(ok, 1.0 / h_eff, 0.0)
 
     def pad_to(x, fill):
         return jnp.concatenate(
@@ -124,59 +175,43 @@ def zsplat_atlas(pos_smooth, values, matrix, resolution, scale,
 
     ay_s = pad_to(ay, sentinel_ay)
     ax_s = pad_to(ax, float(COL_PAD))
-    ih_s = pad_to(inv_h, -1.0)
-    z_s = pad_to(z01c, 0.0)
-    hch_s = pad_to(hchc, 0.0)
-    val_s = pad_to(qty, 0.0)
+    ih_s = pad_to(inv_h, 0.0)
+    # payload: every field a scan step needs besides the anchors
+    pay = tuple(pad_to(jnp.nan_to_num(a), 0.0)
+                for a in (cyc, cxc, roff, z01, h_clip_half, qty))
 
-    # ---- anchors, classes, fits (as splat_atlas, support-tight) ------------
+    # ---- anchors and fits (as splat_atlas, support-tight) ------------------
     n_groups = n_pad // G
     sup_s = jnp.where(ih_s > 0.0,
-                      jnp.minimum(HEMI_SUPPORT / jnp.abs(ih_s), FOOT), 1.0)
+                      jnp.minimum(HEMI_SUPPORT / jnp.maximum(ih_s, 1e-30),
+                                  FOOT), 1.0)
     ay_lo = ay_s - sup_s
     ay_hi = ay_s + sup_s
     ax_lo = ax_s - sup_s
     ax_hi = ax_s + sup_s
     lo_r = ay_lo.reshape(n_groups, G).min(axis=1)
-    hi_r = ay_hi.reshape(n_groups, G).max(axis=1)
     lo_c = ax_lo.reshape(n_groups, G).min(axis=1)
-    hi_c = ax_hi.reshape(n_groups, G).max(axis=1)
-    window_rows = 96
     w0 = (jnp.floor(lo_r / BAND).astype(jnp.int32) * BAND)
     w0 = jnp.clip(w0, 0, ((atlas_rows - window_rows) // BAND) * BAND)
-    c0e = jnp.floor(lo_c).astype(jnp.int32)
-    c0 = jnp.clip((c0e // 128) * 128, 0, atlas_cols - WINDOW_COLS)
-    c0e = jnp.clip(c0e, c0, c0 + WINDOW_COLS - PROFILE_COLS)
+    c0 = jnp.clip(jnp.floor(lo_c).astype(jnp.int32), 0,
+                  atlas_cols - WINDOW_COLS)
 
     w0_rep = jnp.repeat(w0, G).astype(jnp.float32)
-    c0_rep = jnp.repeat(c0e, G).astype(jnp.float32)
+    c0_rep = jnp.repeat(c0, G).astype(jnp.float32)
     fits = ((ay_hi < w0_rep + window_rows)
-            & (ax_hi < c0_rep + PROFILE_COLS)
+            & (ax_hi < c0_rep + WINDOW_COLS)
             & (ax_lo >= c0_rep))
-    ih_fit = jnp.where(fits, ih_s, -jnp.abs(ih_s))
+    ih_fit = jnp.where(fits, ih_s, 0.0)
 
-    w0f = w0.astype(jnp.float32)
-    c0ef = c0e.astype(jnp.float32)
-    sizes = jnp.full_like(w0, FULL_CLASS)
-    for sz in range(len(SIZE_CLASSES) - 2, -1, -1):
-        r_e, c_e = SIZE_CLASSES[sz]
-        r_e = window_rows if r_e is None else min(r_e, window_rows)
-        c_e = PROFILE_COLS if c_e is None else c_e
-        fit_sz = (hi_r < w0f + r_e) & (hi_c < c0ef + c_e)
-        sizes = jnp.where(fit_sz, sz, sizes)
-    active = (ih_fit > 0.0).reshape(n_groups, G).any(axis=1)
-    flags = jnp.where(active, FLAG_ACTIVE * 4 + sizes, 0).astype(jnp.int32)
+    def fields(ih, cy, cx, roff, z, hch, val, steps, g):
+        return tuple(a.reshape(steps, g)
+                     for a in (cy, cx, roff, ih, z, hch, val))
 
-    pay = jnp.stack([z_s, hch_s, val_s], axis=0)          # (3, n_pad)
-    pay_g = pay.reshape(3, n_groups, G).transpose(1, 0, 2)
+    atlas = jnp.zeros((2, atlas_rows, atlas_cols), dtype=jnp.float32)
+    atlas = _front_scan(atlas, fields(ih_fit, *pay, n_groups, G) + (w0, c0),
+                        window_rows=window_rows, window_cols=WINDOW_COLS)
 
-    atlas = accumulate_max_groups_pallas(
-        ay_s.reshape(n_groups, 1, G), ax_s.reshape(n_groups, 1, G),
-        ih_fit.reshape(n_groups, 1, G), pay_g, w0, c0, c0e, flags,
-        atlas_rows=atlas_rows, atlas_cols=atlas_cols, group=G,
-        interpret=interpret, window_rows=window_rows, subgroups=sg)
-
-    # ---- spill tiers (mirrors splat_atlas; max semantics) ------------------
+    # ---- spill tiers (mirrors splat_atlas.spill_pass; max semantics) -------
     spilled = ~fits & (ih_s > 0.0)
     per_group_spill = spilled.reshape(n_groups, G).sum(axis=1)
     n_spill = per_group_spill.sum()
@@ -184,27 +219,22 @@ def zsplat_atlas(pos_smooth, values, matrix, resolution, scale,
     k_groups = min(n_groups, (config.SPLAT_SPILL_GROUP_CAP
                               if spill_group_cap is None
                               else spill_group_cap))
-    k_groups = max(1, (k_groups * (G // G_SPILL)) // SUBGROUPS) \
-        * SUBGROUPS * G_SPILL // G
     spill_cap = k_groups * G
 
     def do_spill(atlas):
         _, top_idx = jax.lax.top_k(per_group_spill, k_groups)
-        # layout order: keep gathered groups Morton-adjacent so spill
-        # subgroups share DMA bands (see splat_atlas.spill_pass)
+        # layout order: gathered groups stay spatially adjacent
         top_idx = jnp.sort(top_idx)
 
         def gather(arr):
-            return jnp.take(arr.reshape(n_groups, G, -1), top_idx,
-                            axis=0).reshape(spill_cap, -1)
+            return jnp.take(arr.reshape(n_groups, G), top_idx,
+                            axis=0).reshape(spill_cap)
 
-        valid = gather(spilled)[:, 0]
-        s_ay = gather(ay_s)[:, 0]
-        s_ax = gather(ax_s)[:, 0]
-        s_ih = jnp.where(valid, jnp.abs(gather(ih_s)[:, 0]), -1.0)
-        s_z = gather(z_s)[:, 0]
-        s_hch = gather(hch_s)[:, 0]
-        s_val = gather(val_s)[:, 0]
+        valid = gather(spilled)
+        s_ay = gather(ay_s)
+        s_ax = gather(ax_s)
+        s_ih = jnp.where(valid, gather(ih_s), 0.0)
+        s_pay = tuple(gather(a) for a in pay)
 
         n_sg = spill_cap // G_SPILL
         valid2 = valid.reshape(n_sg, G_SPILL)
@@ -213,106 +243,37 @@ def zsplat_atlas(pos_smooth, values, matrix, resolution, scale,
         ay2m = jnp.where(jnp.isfinite(ay2m), ay2m, float(ROW_PAD))
         sw0 = (jnp.floor((ay2m - FOOT) / BAND).astype(jnp.int32) * BAND)
         sw0 = jnp.clip(sw0, 0, ((atlas_rows - window_rows) // BAND) * BAND)
-        sc0 = jnp.zeros_like(sw0)
 
+        # tier 2: full-width windows, so only row stragglers fall through
         sw0_rep = jnp.repeat(sw0, G_SPILL).astype(jnp.float32)
         fits2 = (s_ay + FOOT < sw0_rep + window_rows) & valid
-        s_ih2 = jnp.where(fits2, s_ih, -jnp.abs(s_ih))
         straggler = ~fits2 & valid
         n3 = straggler.sum()
+        atlas = _front_scan(
+            atlas, fields(jnp.where(fits2, s_ih, 0.0), *s_pay, n_sg,
+                          G_SPILL) + (sw0, jnp.zeros_like(sw0)),
+            window_rows=window_rows, window_cols=atlas_cols)
 
-        active2 = (s_ih2 > 0.0).reshape(n_sg, G_SPILL).any(axis=1)
-        sflags = jnp.where(active2, FLAG_ACTIVE * 4 + FULL_CLASS, 0
-                           ).astype(jnp.int32)
-        spay = jnp.stack([s_z, s_hch, s_val], axis=0)
-        spay_g = spay.reshape(3, n_sg, G_SPILL).transpose(1, 0, 2)
-        atlas = accumulate_max_groups_pallas(
-            s_ay.reshape(n_sg, 1, G_SPILL), s_ax.reshape(n_sg, 1, G_SPILL),
-            s_ih2.reshape(n_sg, 1, G_SPILL), spay_g, sw0, sc0, sc0, sflags,
-            atlas_rows=atlas_rows, atlas_cols=atlas_cols, group=G_SPILL,
-            interpret=interpret, atlas0=atlas, window_cols=atlas_cols,
-            window_rows=window_rows)
-
-        # tier 3: per-particle dynamic windows, max-merged sequentially
+        # tier 3: per-particle windows (fit by construction)
         T3 = min(1024 if t3_cap is None else t3_cap, spill_cap)
-
-        if t3_cap is not None:
-            # the whole-tier surface column path: run tier 3 as an
-            # UNCONDITIONAL group=1 pallas pass (top_k compaction, windows
-            # fit by construction, inactive when no stragglers) — the
-            # cond-wrapped scan below costs ~150 us per step when taken,
-            # which at t3_cap=4096 would dwarf the whole frame (same
-            # policy and rationale as splat_atlas's tier 3)
-            from .splat_pallas import COL_ALIGN
-            _, idx3 = jax.lax.top_k(straggler.astype(jnp.float32)
-                                    * (2.0 - jnp.arange(spill_cap,
-                                                        dtype=jnp.float32)
-                                       / spill_cap), T3)
-            valid3 = jnp.take(straggler, idx3)
-            t_ay = jnp.take(s_ay, idx3)
-            t_ax = jnp.take(s_ax, idx3)
-            t_ih = jnp.where(valid3, jnp.abs(jnp.take(s_ih, idx3)), -1.0)
-            t_z = jnp.take(s_z, idx3)
-            t_hch = jnp.take(s_hch, idx3)
-            t_val = jnp.take(s_val, idx3)
-            tw0 = (jnp.floor((t_ay - FOOT) / BAND).astype(jnp.int32) * BAND)
-            tw0 = jnp.clip(tw0, 0,
-                           ((atlas_rows - window_rows) // BAND) * BAND)
-            ce_raw = jnp.floor(t_ax - FOOT).astype(jnp.int32)
-            tc0 = jnp.clip((ce_raw // COL_ALIGN) * COL_ALIGN, 0,
-                           atlas_cols - WINDOW_COLS)
-            tce = jnp.clip(ce_raw, tc0, tc0 + WINDOW_COLS - PROFILE_COLS)
-            tflags = jnp.where(valid3, FLAG_ACTIVE * 4 + FULL_CLASS, 0
-                               ).astype(jnp.int32)
-            tpay = jnp.stack([t_z, t_hch, t_val], axis=0)
-            atlas = accumulate_max_groups_pallas(
-                t_ay.reshape(T3, 1, 1), t_ax.reshape(T3, 1, 1),
-                t_ih.reshape(T3, 1, 1), tpay.reshape(3, T3, 1
-                                                     ).transpose(1, 0, 2),
-                tw0, tc0, tce, tflags, atlas_rows=atlas_rows,
-                atlas_cols=atlas_cols, group=1, interpret=interpret,
-                atlas0=atlas, window_rows=window_rows)
-            not_gathered = n_spill - valid.sum()
-            return atlas, not_gathered + jnp.maximum(n3 - T3, 0)
 
         def do_t3(atlas):
             big3 = jnp.int32(np.iinfo(np.int32).max)
             key3 = jnp.where(straggler,
                              jnp.arange(spill_cap, dtype=jnp.int32), big3)
-            ops3 = jax.lax.sort(
-                (key3, s_ay, s_ax, jnp.abs(s_ih), s_z, s_hch, s_val),
-                num_keys=1)
+            ops3 = jax.lax.sort((key3, s_ay, s_ax, s_ih) + s_pay,
+                                num_keys=1)
             valid3 = ops3[0][:T3] < big3
-            t_ay, t_ax, t_ih, t_z, t_hch, t_val = (o[:T3] for o in ops3[1:])
+            t_ay, t_ax, t_ih = (o[:T3] for o in ops3[1:4])
+            t_pay = tuple(o[:T3] for o in ops3[4:])
             tw0 = (jnp.floor((t_ay - FOOT) / BAND).astype(jnp.int32) * BAND)
             tw0 = jnp.clip(tw0, 0, ((atlas_rows - window_rows) // BAND) * BAND)
             tc0 = jnp.clip(jnp.floor(t_ax - FOOT).astype(jnp.int32),
                            0, atlas_cols - WINDOW_COLS)
-            rows_w = jnp.arange(window_rows, dtype=jnp.float32)
-            cols_w = jnp.arange(WINDOW_COLS, dtype=jnp.float32)
-
-            def tbody(atlas, inputs):
-                v3, ayp, axp, ihp, zp, hchp, valp, w0p, c0p = inputs
-                dy = w0p.astype(jnp.float32) + rows_w - ayp
-                dx = c0p.astype(jnp.float32) + cols_w - axp
-                t = 4.0 - (dy[:, None] ** 2 + dx[None, :] ** 2) * ihp ** 2
-                k = jnp.sqrt(jnp.maximum(t, 0.0))
-                inside = ((dy > -FOOT) & (dy <= FOOT))[:, None] \
-                    & ((dx > -FOOT) & (dx <= FOOT))[None, :]
-                dep = jnp.where((t > 0.0) & v3 & inside, zp + k * hchp,
-                                -jnp.inf)
-                cur = jax.lax.dynamic_slice(
-                    atlas, (0, w0p, c0p), (2, window_rows, WINDOW_COLS))
-                front = dep > cur[0]
-                new = jnp.stack([jnp.where(front, dep, cur[0]),
-                                 jnp.where(front, valp, cur[1])])
-                return jax.lax.dynamic_update_slice(atlas, new,
-                                                    (0, w0p, c0p)), None
-
-            atlas, _ = jax.lax.scan(
-                tbody, atlas,
-                (valid3, t_ay, t_ax, t_ih, t_z, t_hch, t_val, tw0, tc0))
-            return atlas
+            return _front_scan(
+                atlas, fields(jnp.where(valid3, t_ih, 0.0), *t_pay, T3, 1)
+                + (tw0, tc0),
+                window_rows=window_rows, window_cols=WINDOW_COLS)
 
         atlas = jax.lax.cond(n3 > 0, do_t3, lambda a: a, atlas)
         not_gathered = n_spill - valid.sum()

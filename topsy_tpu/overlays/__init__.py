@@ -4,7 +4,7 @@ The reference composites overlays as textured quads with alpha blending on
 the GPU (reference: src/topsy/overlay.py, shaders/overlay.wgsl).  Overlay
 content here is still produced host-side (matplotlib text, colorbars); the
 compositing is a numpy alpha blend onto the presentation image — overlays are
-tiny and outside the TPU hot path.
+tiny and outside the device hot path.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ def alpha_blend(target: np.ndarray, src: np.ndarray, row0: int, col0: int,
 
 
 def resize_rgba(src: np.ndarray, height: int, width: int) -> np.ndarray:
-    import cv2
+    from ..util import require
+    cv2 = require("cv2", "overlay resizing")
     if height <= 0 or width <= 0:
         return np.zeros((max(height, 1), max(width, 1), 4), dtype=np.float32)
     return cv2.resize(src, (width, height), interpolation=cv2.INTER_LINEAR)

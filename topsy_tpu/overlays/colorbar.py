@@ -3,12 +3,9 @@ src/topsy/colorbar.py): regenerated whenever vmin/vmax/colormap change."""
 
 from __future__ import annotations
 
-import matplotlib
-import matplotlib.backends.backend_agg
-import matplotlib.colors as colors
-import matplotlib.figure as figure
 import numpy as np
 
+from ..util import require
 from . import Overlay
 
 
@@ -53,6 +50,12 @@ class ColorbarOverlay(Overlay):
         pixel_ratio = getattr(self._visualizer.canvas, "pixel_ratio", 1.0)
         dpi = self.dpi_logical * pixel_ratio
         canvas_height = getattr(self._visualizer.canvas, "height_physical", 768)
+
+        require("matplotlib", "the colorbar overlay")
+        import matplotlib.backends.backend_agg
+        import matplotlib.colorbar
+        import matplotlib.colors as colors
+        import matplotlib.figure as figure
 
         fig = figure.Figure(
             figsize=(canvas_height * self._aspect_ratio / dpi, canvas_height / dpi),

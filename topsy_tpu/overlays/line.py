@@ -3,7 +3,7 @@
 The reference expands line segments into instanced quads in a shader
 (reference: src/topsy/line.py, shaders/line.wgsl); here lines are drawn with
 anti-aliased cv2 strokes onto a transparent layer that is alpha-composited —
-equivalent output, host-side (overlays are outside the TPU hot path).
+equivalent output, host-side (overlays are outside the device hot path).
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ class Line:
         return self.points
 
     def composite(self, target: np.ndarray):
-        import cv2
+        from ..util import require
+        cv2 = require("cv2", "line overlays")
         H, W = target.shape[:2]
         pts = self.get_clipspace_points()
         layer = np.zeros((H, W, 4), dtype=np.float32)
@@ -78,7 +79,8 @@ class SimCube(Line):
         return np.asarray(pts)
 
     def composite(self, target: np.ndarray):
-        import cv2
+        from ..util import require
+        cv2 = require("cv2", "line overlays")
         H, W = target.shape[:2]
         pts = self.get_clipspace_points()
         if len(pts) == 0:

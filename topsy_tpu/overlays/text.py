@@ -32,6 +32,8 @@ def text_to_rgba(s: str, *, dpi: float, **kwargs) -> np.ndarray:
     if hit is not None:
         return hit
 
+    from ..util import require
+    require("matplotlib", "text overlays")
     from matplotlib.figure import Figure
     import matplotlib.pyplot as plt
 

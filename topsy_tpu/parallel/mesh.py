@@ -14,7 +14,7 @@ def make_mesh(n_devices: int | None = None, axis_name: str = PARTICLE_AXIS) -> M
 
     Rendering parallelism is pure data parallelism over particles with a
     framebuffer all-reduce (SURVEY.md §2.10), so a 1-D mesh is the natural
-    layout; on a pod slice the axis should be ordered so the psum rides ICI.
+    layout.
     """
     devices = jax.devices()
     if n_devices is not None:

@@ -1,4 +1,4 @@
-"""Multi-chip rendering: particle-sharded splatting with an ICI framebuffer
+"""Multi-chip rendering: particle-sharded splatting with a framebuffer
 all-reduce.
 
 The reference is single-GPU; its particle-axis scaling constructs (split
@@ -15,10 +15,11 @@ progressive-LOD prefix [0, K) stays load-balanced across chips AND maps to a
 trick as the single-chip store works per shard, with only the LOD mask
 translated to global indices.
 
-Multi-host note: on a pod, each host should build its process-local rows
-(global indices i with (i % D) owned by its local devices) and assemble the
-global array with ``jax.make_array_from_process_local_data`` using the same
-NamedSharding; the render step is unchanged (DCN is touched only at load).
+Multi-host note: each host builds its process-local rows (global indices
+i with (i % D) owned by its local devices) and assembles the global array
+with ``jax.make_array_from_process_local_data`` using the same
+NamedSharding; the render step is unchanged (the host network is touched
+only at load).
 """
 
 from __future__ import annotations
@@ -95,8 +96,8 @@ class DistributedSplatter:
         its local devices (global indices i with i % D giving a local
         device, already padded to n_local_devices * ceil(global_n / D)
         rows), assembled with jax.make_array_from_process_local_data so no
-        host ever materializes the full snapshot.  DCN is touched only here;
-        the render step's psum rides ICI.
+        host ever materializes the full snapshot.  The host network is
+        touched only here; the render step's psum stays between devices.
 
         Pass ``n_cells`` explicitly when cell culling is used — the local
         rows only see a subset of cells, so the constructor must not infer
@@ -220,7 +221,7 @@ class DistributedSplatter:
                                             scale, extra_mask=mask,
                                             depth_channel=depth_channel)
             # additive blending is exactly a sum-reduction: the partial
-            # framebuffer all-reduce over ICI reproduces single-chip output
+            # framebuffer all-reduce reproduces single-chip output
             return jax.lax.psum(im, axis)
 
         shard_fn = jax.shard_map(
@@ -238,7 +239,7 @@ class DistributedSplatter:
         for from_process_local (each process presorts its own rows; with
         more than one process ensure_presorted negotiates the shared
         ``padded_local_len`` automatically via an allgather-max, so the
-        automatic render paths work unmodified on a pod).
+        automatic render paths work unmodified across hosts).
 
         False only when construction kept no host rows at all — then the
         fast paths fall back to the unsorted block renderer, loudly
@@ -277,7 +278,7 @@ class DistributedSplatter:
         fair subsamples (the per-group shuffle is per-layout but every
         layout's columns are fair).  With more than one process the padded
         per-device length is data-dependent per host; it is negotiated
-        automatically (allgather-max of the natural lengths over DCN,
+        automatically (allgather-max of the natural lengths across hosts,
         _negotiate_padded_len) — ``padded_local_len`` remains available to
         skip the collective when callers already agreed on a length.
         """
@@ -450,9 +451,9 @@ class DistributedSplatter:
 
         Every host must build identically-shaped slabs for
         make_array_from_process_local_data; the natural lengths are
-        data-dependent per host, so agree on their maximum over DCN
+        data-dependent per host, so agree on their maximum across hosts
         (jax.experimental.multihost_utils — one tiny collective at load
-        time; render-step communication stays on ICI).  Lengths are
+        time; render steps need no host collective).  Lengths are
         multiples of 4096 by construction, so the max stays valid."""
         from jax.experimental import multihost_utils
         lens = multihost_utils.process_allgather(
@@ -503,211 +504,6 @@ class DistributedSplatter:
         if tier is None:
             return self._presorted
         return self._presorted.get("mips", [])[tier]
-
-    # -- fused feed-kernel (transposed fields) fast paths -----------------------
-
-    def _use_feed(self) -> bool:
-        """Mesh analogue of render/sph.SPHRenderer._use_feed: the fused
-        Pallas front-end runs on real TPUs only."""
-        from .. import config
-        return (config.EXPORT_USE_FEED and self._backend == "atlas"
-                and (jax.default_backend() == "tpu"
-                     or getattr(self, "_force_feed", False)))
-
-    def _presorted_fields(self, ps=None):
-        """Derive sharded transposed slabs from a presorted tier dict (lazy,
-        one-time): per-field (D, n_groups_local, pad_group) matrices, the
-        layout ops/splat_feed.py consumes — reshapes of sharded arrays are
-        local to each device."""
-        if ps is None:
-            ps = self._presorted
-        if "fields" not in ps:
-            ln = ps["local_n"]
-            G = ps["layout"].pad_group
-            ngl = ln // G
-            D = self.n_devices
-            pos, vals = ps["pos"], ps["values"]
-            C = int(vals.shape[-1])
-            ps["fields"] = tuple(pos[:, :, k].reshape(D, ngl, G)
-                                 for k in range(4))
-            ps["values_cm"] = tuple(vals[:, :, c].reshape(D, ngl, G)
-                                    for c in range(C))
-            ps["gbuckets"] = ps["buckets"].reshape(D, ngl, G)[:, :, 0]
-        return ps
-
-    def _feed_mask(self, cell_mask, ps=None):
-        """(D, n_groups_local, pad_group) sharded cull mask for one tier,
-        rebuilt only when the cell selection changes (the per-particle
-        table gather is far too slow to run per frame)."""
-        if cell_mask is None:
-            return None
-        ps = self._presorted_fields(ps)
-        mask_np = np.asarray(cell_mask, dtype=bool)
-        key = hash(mask_np.tobytes())
-        cached = ps.get("feed_mask_cache")
-        if cached is not None and cached[0] == key:
-            return cached[1]
-        table = jnp.asarray(mask_np)
-        G = ps["layout"].pad_group
-        ngl = ps["local_n"] // G
-        m = table[ps["cell_ids"]].astype(jnp.float32).reshape(
-            self.n_devices, ngl, G)
-        ps["feed_mask_cache"] = (key, m)
-        return m
-
-    def _build_presorted_step_fields(self, piece_g: int, whole: bool,
-                                     has_mask: bool, auto_giants: bool):
-        axis = self.axis
-        resolution = self.resolution
-        depth_channel = self._depth_channel
-        C = int(self.values.shape[-1])
-
-        def local_render(*args):
-            fields = tuple(a[0] for a in args[:4])
-            vals = tuple(a[0] for a in args[4:4 + C])
-            gb = args[4 + C][0]
-            k = 5 + C
-            mask = None
-            if has_mask:
-                mask = args[k][0]
-                k += 1
-            matrix, scale, g0, gb_thresh = args[k:k + 4]
-            # giant handling per _giant_mode: 'auto' renders each shard's
-            # giants exactly in-call; a bucket threshold excludes them,
-            # identical to the single-chip fields path
-            # (render/sph._render_block_fields) — buckets travel with the
-            # slab data, so the same threshold is valid on every shard and
-            # the caller owns the dense layer
-            im, dropped = splat_atlas.splat_atlas_fields(
-                fields, vals, matrix, resolution, scale, gb, mask=mask,
-                depth_channel=depth_channel,
-                piece=None if whole else (g0, piece_g),
-                giants="auto" if auto_giants else gb_thresh)
-            return jax.lax.psum(im, axis), jax.lax.psum(dropped, axis)
-
-        n_sharded = 5 + C + (1 if has_mask else 0)
-        shard_fn = jax.shard_map(
-            local_render, mesh=self.mesh,
-            in_specs=tuple([P(self.axis)] * n_sharded + [P()] * 4),
-            out_specs=(P(), P()),
-            check_vma=False)
-        return jax.jit(shard_fn)
-
-    def _render_presorted_fields(self, matrix, scale, cell_mask,
-                                 giant_bucket=None):
-        from .. import config
-        ps = self._presorted_fields()
-        ln = ps["local_n"]
-        G = ps["layout"].pad_group
-        ngl = ln // G
-        piece_g = max(8, min(ngl, config.SPLAT_FEED_LAUNCH_CAP // G))
-        mask = self._feed_mask(cell_mask)
-        base = ps["fields"] + ps["values_cm"] + (ps["gbuckets"],)
-        if mask is not None:
-            base = base + (mask,)
-        auto, gb_thresh = _giant_mode(giant_bucket)
-        total = None
-        dropped = jnp.int32(0)
-        for g0 in range(0, ngl, piece_g):
-            pg = min(piece_g, ngl - g0)
-            whole = pg == ngl
-            key = ("fields", pg, whole, mask is not None, auto)
-            step = self._presorted_steps.get(key)
-            if step is None:
-                step = self._presorted_steps[key] = \
-                    self._build_presorted_step_fields(pg, whole,
-                                                      mask is not None, auto)
-            im, d = step(*base, jnp.asarray(matrix, jnp.float32),
-                         jnp.float32(scale), jnp.int32(g0), gb_thresh)
-            total = im if total is None else total + im
-            dropped = dropped + d
-        return total, dropped
-
-    def _build_columns_step_fields(self, width: int, has_mask: bool,
-                                   auto_giants: bool):
-        axis = self.axis
-        resolution = self.resolution
-        depth_channel = self._depth_channel
-        C = int(self.values.shape[-1])
-
-        def local_render(*args):
-            fields = tuple(a[0] for a in args[:4])
-            vals = tuple(a[0] for a in args[4:4 + C])
-            gb = args[4 + C][0]
-            k = 5 + C
-            mask = None
-            if has_mask:
-                mask = args[k][0]
-                k += 1
-            matrix, scale, col0, gb_thresh = args[k:k + 4]
-            # non-merged slices + scaled subgroups, as the single-chip
-            # column path (render/sph._render_block_columns_fields): merged
-            # groups' union footprints flooded the spill tiers
-            from ..ops.splat_pallas import SUBGROUPS
-            pad_group = fields[0].shape[1]
-            subgroups = min(64, SUBGROUPS * (pad_group // width))
-            sliced, svals, sgb, smask = splat_atlas.slice_column_fields(
-                fields, vals, gb, mask, col0, width, merge=False,
-                pad_multiple=subgroups)
-            # giant handling per _giant_mode; threshold mode matches the
-            # single-chip column path (render/sph._render_block_columns_fields):
-            # the render loop's dense layer (_prepare_giants) covers the
-            # exact giants
-            from .. import config as _config
-
-            def launch(piece):
-                return splat_atlas.splat_atlas_fields(
-                    sliced, svals, matrix, resolution, scale, sgb,
-                    mask=smask, depth_channel=depth_channel,
-                    giants="auto" if auto_giants else gb_thresh,
-                    subgroups=subgroups, piece=piece,
-                    spill_group_cap=4 * _config.SPLAT_SPILL_GROUP_CAP,
-                    spill_t3_cap=4096)
-
-            # group-axis pieces: per-group SMEM prefetch arrays cap each
-            # launch (config.SPLAT_COLUMNS_GROUP_CAP — the single-chip
-            # column path does the same, render/sph)
-            ngs = sliced[0].shape[0]
-            cap = _config.SPLAT_COLUMNS_GROUP_CAP
-            if ngs <= cap:
-                im, dropped = launch(None)
-            else:
-                im = None
-                dropped = jnp.int32(0)
-                for g0 in range(0, ngs, cap):
-                    im_p, d_p = launch((g0, min(cap, ngs - g0)))
-                    im = im_p if im is None else im + im_p
-                    dropped = dropped + d_p
-            return jax.lax.psum(im, axis), jax.lax.psum(dropped, axis)
-
-        n_sharded = 5 + C + (1 if has_mask else 0)
-        shard_fn = jax.shard_map(
-            local_render, mesh=self.mesh,
-            in_specs=tuple([P(self.axis)] * n_sharded + [P()] * 4),
-            out_specs=(P(), P()),
-            check_vma=False)
-        return jax.jit(shard_fn)
-
-    def _render_columns_fields(self, matrix, scale, col0: int, ncols: int,
-                               cell_mask, ps=None, giant_bucket=None):
-        ps = self._presorted_fields(ps)
-        mask = self._feed_mask(cell_mask, ps)
-        base = ps["fields"] + ps["values_cm"] + (ps["gbuckets"],)
-        if mask is not None:
-            base = base + (mask,)
-        auto, gb_thresh = _giant_mode(giant_bucket)
-        # ONE launch for the whole range: un-merged slices take any width,
-        # and launch cost is flat in width (render/sph.
-        # _render_block_columns_fields) — splitting into power-of-two
-        # pieces multiplies it
-        key = ("fields", ncols, mask is not None, auto)
-        step = self._column_steps.get(key)
-        if step is None:
-            step = self._column_steps[key] = \
-                self._build_columns_step_fields(ncols, mask is not None,
-                                                auto)
-        return step(*base, jnp.asarray(matrix, jnp.float32),
-                    jnp.float32(scale), jnp.int32(col0), gb_thresh)
 
     def _build_presorted_step(self, bucket: int, auto_giants: bool):
         axis = self.axis
@@ -805,8 +601,8 @@ class DistributedSplatter:
     def _build_columns_surface_step(self, width: int, pad_group: int):
         """shard_map step for surface (front-most fragment) column renders.
 
-        Each shard z-splats its slab's column slice through the Pallas
-        max-composite kernel (ops/zsplat_atlas.py); the cross-mesh reduce is
+        Each shard z-splats its slab's column slice through the front-most
+        atlas engine (ops/zsplat_atlas.py); the cross-mesh reduce is
         an elementwise depth arg-max instead of the additive psum (SURVEY §5
         last bullet; reference z-buffer semantics: src/topsy/sph.py:606-610,
         467-478): ``pmax`` the depth channel, then ``pmax`` the payload
@@ -834,50 +630,21 @@ class DistributedSplatter:
 
             if width == pad_group:
                 p, v, b, cid = pos, vals, buckets, ids
-                group = subgroups = None
             else:
                 p, v, b, cid = (slice_cols(pos), slice_cols(vals),
                                 slice_cols(buckets), slice_cols(ids))
-                # un-merged slices: one group per original group (see
-                # render/surface._render_block_columns_surface)
-                from ..ops.splat_pallas import SUBGROUPS
-                group = width
-                subgroups = min(64, SUBGROUPS * (pad_group // width))
-            mask = cell_table[cid]
             # giants excluded by bucket threshold; the render loop's dense
             # hemisphere layer (surface._prepare_surface_giants) is
-            # max-composited in by the caller — same contract as the
-            # single-chip surface column path
+            # max-composited in by the caller — same contract, grouping and
+            # spill budgets as the single-chip surface column path
+            # (render/surface._render_block_columns_surface)
             from .. import config as _config
-
-            def launch(sl):
-                return zsplat_atlas.zsplat_atlas(
-                    p[sl], v[sl], matrix, resolution, scale, b[sl],
-                    density_cut=cut, extra_mask=mask[sl],
-                    giants=gb_thresh, group=group, subgroups=subgroups,
-                    # raised spill budgets, as the single-chip surface
-                    # column path (render/surface)
-                    spill_group_cap=4 * _config.SPLAT_SPILL_GROUP_CAP,
-                    t3_cap=4096)
-
-            # group-axis row chunks under the SMEM prefetch cap, partial
-            # z-buffers max-composited (as the single-chip surface path)
-            g_eff = 512 if group is None else group
-            chunk_rows = _config.SPLAT_COLUMNS_GROUP_CAP * g_eff
-            if p.shape[0] <= chunk_rows:
-                im, dropped = launch(slice(None))
-            else:
-                im = None
-                dropped = jnp.int32(0)
-                for r0 in range(0, p.shape[0], chunk_rows):
-                    sl = slice(r0, min(r0 + chunk_rows, p.shape[0]))
-                    im_p, d_p = launch(sl)
-                    if im is None:
-                        im = im_p
-                    else:
-                        front = im_p[..., -1] > im[..., -1]
-                        im = jnp.where(front[..., None], im_p, im)
-                    dropped = dropped + d_p
+            im, dropped = zsplat_atlas.zsplat_atlas(
+                p, v, matrix, resolution, scale, b, density_cut=cut,
+                extra_mask=cell_table[cid], giants=gb_thresh,
+                group=None if width == pad_group else width,
+                spill_group_cap=4 * _config.SPLAT_SPILL_GROUP_CAP,
+                t3_cap=4096)
             depth = im[..., -1]
             dmax = jax.lax.pmax(depth, axis)
             payload = jnp.where((depth == dmax)[..., None], im[..., :-1],
@@ -941,10 +708,6 @@ class DistributedSplatter:
         from ..ops.morton import slice_widths
         self.ensure_presorted()
         ps = self._tier(tier)
-        if self._use_feed():
-            return self._render_columns_fields(matrix, scale, col0, ncols,
-                                               cell_mask, ps,
-                                               giant_bucket=giant_bucket)
         layout = ps["layout"]
         table = self._all_cells if cell_mask is None else jnp.asarray(cell_mask)
         auto, gb_thresh = _giant_mode(giant_bucket)
@@ -976,9 +739,6 @@ class DistributedSplatter:
         """Full-coverage sort-free render of all particles across the mesh;
         returns (image, dropped).  ``giant_bucket`` as in render_columns."""
         self.ensure_presorted()
-        if self._use_feed():
-            return self._render_presorted_fields(matrix, scale, cell_mask,
-                                                 giant_bucket=giant_bucket)
         ps = self._presorted
         ln = ps["local_n"]
         bucket = local_bucket_size(ln, ln)

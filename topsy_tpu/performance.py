@@ -1,8 +1,8 @@
 """Profiling and tracing hooks.
 
 The reference emits macOS os_signpost intervals for Instruments with a no-op
-fallback (reference: src/topsy/performance.py:3-21).  The TPU-native
-equivalents are (a) the same lightweight event API, optionally bridged to
+fallback (reference: src/topsy/performance.py:3-21).  The equivalents
+here are (a) the same lightweight event API, optionally bridged to
 ``jax.profiler`` named traces so events appear in TensorBoard/XProf device
 profiles, and (b) ``start_trace``/``stop_trace`` wrappers for capturing a
 full device trace of a render.

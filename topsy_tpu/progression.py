@@ -331,19 +331,13 @@ class RenderProgressionColumns(CellSelectionMixin, RenderProgression):
             # are powers of two so each width compiles once)
             c1 = min(c0 + ((c1 - c0 + q - 1) // q) * q, len(cum) - 1)
         else:
-            # whole-tier blocks for interactive frames: a column launch
-            # touches every group of its tier regardless of width (window
-            # read-modify-write, profile spans and grid steps are all
-            # per-group), so its cost is flat in width — measured at 2^26:
-            # the full 8.9M-particle tier renders in ~11 ms while ANY
-            # narrower slice of it costs ~20-36 ms (merged groups spill;
-            # non-merged slices still touch every window).  A partial
-            # slice is therefore strictly worse than finishing the tier:
-            # more time for fewer particles.  Tier granularity (8x steps)
-            # replaces width granularity; the photometric scale factor
-            # keeps every partial frame exact, and the deepest tier is
-            # bounded by COLUMN_MIP_FLOOR_TARGET so the mandatory block
-            # stays affordable.
+            # whole-tier blocks for interactive frames: tier granularity
+            # (8x steps) replaces width granularity, on the premise that a
+            # column launch costs about as much as finishing its tier
+            # (narrow slices merge groups whose union footprints spill).
+            # The photometric scale factor keeps every partial frame
+            # exact, and the deepest tier is bounded by
+            # COLUMN_MIP_FLOOR_TARGET so the mandatory block stays small.
             if start == 0:
                 # budget-driven tier promotion for the frame's first
                 # block: a mip holds exactly the particles of its

@@ -184,7 +184,8 @@ class VisualizationRecorder:
 
     def save_mp4(self, filename, fps=30.0, resolution=(1920, 1080),
                  *args, **kwargs):
-        import cv2
+        from ..util import require
+        cv2 = require("cv2", "mp4 export")
         writer = cv2.VideoWriter(filename, cv2.VideoWriter.fourcc(*"mp4v"),
                                  fps, resolution)
         for image in self._replay(fps, resolution, *args, **kwargs):

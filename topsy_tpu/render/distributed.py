@@ -3,7 +3,7 @@
 Drops into the Visualizer in place of the single-chip renderer (pass
 ``mesh=`` to the Visualizer): LOD blocks, cell culling, quantity switching
 and photometric rescaling behave identically; each block is splatted by all
-chips on their particle shards and psum-reduced over ICI
+chips on their particle shards and psum-reduced over the mesh
 (parallel/render_step.py).
 """
 
@@ -66,7 +66,7 @@ class MeshSplatterMixin:
     def _maybe_activate_columns(self, draw_reason) -> bool:
         """Sort-free column LOD over the mesh: each chip renders the column
         range of its Morton slab and the partial framebuffers reduce over
-        ICI (the per-group shuffle is global, so the union is the same fair
+        the mesh (the per-group shuffle is global, so the union is the same fair
         subsample as single-chip)."""
         from ..drawreason import DrawReason
         from ..progression import RenderProgressionColumns
@@ -109,11 +109,7 @@ class DistributedSPHRenderer(MeshSplatterMixin, SPHRenderer):
     """Density / weighted-quantity renderer over a particle-sharded mesh."""
 
     def _render_columns_range(self, matrix, scale, col0: int, ncols: int,
-                              first_block: bool, sync_blocks: bool,
-                              export: bool = False) -> bool:
-        # ``export`` is part of the base signature (power-of-two EXPORT
-        # width decomposition); the mesh splatter decomposes internally
-        # (render_step.render_columns), so compiles are already bounded
+                              first_block: bool, sync_blocks: bool) -> bool:
         splatter = self._get_splatter()
         mask = self._render_progression.get_selected_cell_mask()
         with self._render_timer:
@@ -248,7 +244,7 @@ class DistributedPeriodicSPHRenderer(PeriodicSPHRenderer,
     """Periodic lattice compositing of the mesh-rendered panel.
 
     The base panel is splatted across the mesh's particle shards and
-    psum-reduced over ICI exactly as DistributedSPHRenderer does (whose
+    psum-reduced over the mesh exactly as DistributedSPHRenderer does (whose
     _render_columns_range/_launch_block/_render_presorted this class
     inherits — PeriodicSPHRenderer contributes only the lattice
     post-processing); the (2n+1)^3 composite (reference:

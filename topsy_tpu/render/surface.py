@@ -43,7 +43,7 @@ def _render_block_columns_surface(pos_smooth, values, buckets, cell_ids,
                                   col0, giant_bucket, *, resolution, width,
                                   pad_group):
     """Column-slice z-buffered render (sort-free LOD, as sph.py's columns
-    path) through the Pallas max-composite kernel (ops/zsplat_atlas.py).
+    path) through the front-most atlas engine (ops/zsplat_atlas.py).
     ``cell_table`` (None = no culling) masks unselected cells.  Slices are
     NOT merged into pad_group-particle groups: zsplat_atlas groups the
     flat slice at ``group=width`` so each original group keeps its own
@@ -66,46 +66,15 @@ def _render_block_columns_surface(pos_smooth, values, buckets, cell_ids,
                 (ngr * width,) + tail)
 
     mask = None if cell_table is None else cell_table[slice_cols(cell_ids)]
-    if width == pad_group:
-        group = subgroups = None  # the standard full-width grouping
-        g_eff = 512  # zsplat's internal GROUP for large launches
-    else:
-        group = width
-        from ..ops.splat_pallas import SUBGROUPS
-        subgroups = min(64, SUBGROUPS * (pad_group // width))
-        g_eff = width
-    # raised spill budgets, as the additive column path
-    # (render/sph._render_block_columns_fields): whole-tier CHANGE frames
-    # at 2^26-2^27 overflow the default caps (decimation-tier groups cover
-    # 8x the volume) and would silently drop splats
+    # raised spill budgets: whole-tier CHANGE frames put every group of a
+    # decimation tier in one launch, and those groups cover 8x the volume
     from .. import config
-    ps_s = slice_cols(pos_smooth)
-    vals_s = slice_cols(values)
-    bks_s = slice_cols(buckets)
-
-    def launch(sl):
-        return zsplat_atlas.zsplat_atlas(
-            ps_s[sl], vals_s[sl], matrix, resolution,
-            scale, bks_s[sl], density_cut=density_cut,
-            extra_mask=None if mask is None else mask[sl],
-            giants=giant_bucket, group=group, subgroups=subgroups,
-            spill_group_cap=4 * config.SPLAT_SPILL_GROUP_CAP, t3_cap=4096)
-
-    # group-axis row chunks: the kernel's per-group SMEM prefetch arrays
-    # cap the groups per launch (config.SPLAT_COLUMNS_GROUP_CAP — at
-    # 2^26+ a single whole-tier or EXPORT-chunk launch exceeds the 1 MB
-    # SMEM); partial z-buffers combine by max-composite
-    chunk_rows = config.SPLAT_COLUMNS_GROUP_CAP * g_eff
-    n_rows = ps_s.shape[0]
-    if n_rows <= chunk_rows:
-        return launch(slice(None))
-    im = None
-    dropped = jnp.int32(0)
-    for r0 in range(0, n_rows, chunk_rows):
-        im_p, d_p = launch(slice(r0, min(r0 + chunk_rows, n_rows)))
-        im = im_p if im is None else _max_composite(im, im_p)
-        dropped = dropped + d_p
-    return im, dropped
+    return zsplat_atlas.zsplat_atlas(
+        slice_cols(pos_smooth), slice_cols(values), matrix, resolution,
+        scale, slice_cols(buckets), density_cut=density_cut,
+        extra_mask=mask, giants=giant_bucket,
+        group=None if width == pad_group else width,
+        spill_group_cap=4 * config.SPLAT_SPILL_GROUP_CAP, t3_cap=4096)
 
 
 @functools.partial(jax.jit, static_argnames=("resolution",))
@@ -181,9 +150,8 @@ class SurfaceSPHRenderer(SPHRenderer):
     def render(self, draw_reason=DrawReason.CHANGE):
         if draw_reason == DrawReason.PRESENTATION_CHANGE:
             return
-        # the scatter-max fallback is ~3 orders of magnitude slower than the
-        # Pallas kernel, so the presorted column path is worth building even
-        # for a one-shot EXPORT (unlike sph.py's lazy policy)
+        # the presorted column path serves EXPORT too: the scatter-max
+        # block path materializes a 16x16 window per particle twice
         columns = self._maybe_activate_columns(
             DrawReason.CHANGE if draw_reason == DrawReason.EXPORT
             else draw_reason)
@@ -315,8 +283,7 @@ class SurfaceSPHRenderer(SPHRenderer):
                          tier.buckets,
                          tier.cell_ids if culling else None)
         # ONE launch for the whole range (un-merged slices accept any
-        # width, and launch cost is flat in width — see render/sph.
-        # _render_block_columns_fields)
+        # width)
         if ncols:
             with self._render_timer:
                 from ..ops.splat_giant import BUCKET_DISABLED

@@ -40,6 +40,8 @@ VALID_RENDER_MODES = ("univariate", "bivariate", "rgb", "rgb-hdr", "surface")
 class VisualizerBase:
     colorbar_aspect_ratio = config.COLORBAR_ASPECT_RATIO
     show_status = True
+    show_colorbar = True
+    show_scalebar = True
 
     def __init__(self, data_loader_class=TestDataLoader, data_loader_args=(),
                  data_loader_kwargs=None, *,
@@ -63,8 +65,6 @@ class VisualizerBase:
         self._colormap: ColormapHolder | None = None
         self.crosshairs_visible = False
         self._prevent_sph_rendering = False
-        self.show_colorbar = True
-        self.show_scalebar = True
         self._last_status_update = 0.0
         self.last_frame: np.ndarray | None = None
 
@@ -486,6 +486,8 @@ class VisualizerBase:
                 hdr_tiff.imwrite(filename, image.astype(np.float16))
             logger.info("Saved %s", filename)
             return
+        from .util import require
+        require("matplotlib", f"saving {filename}")
         import matplotlib.pyplot as p
         colormap_params = self._colormap.get_parameters()
         fig = p.figure()
